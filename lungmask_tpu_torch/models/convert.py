@@ -1,0 +1,168 @@
+"""Weights for the port (counterpart of ``lungmask_tpu.models.convert``).
+
+* :func:`from_jax_params` turns the JAX package's numpy parameter tree
+  (HWIO conv kernels, folded-BN affines — what ``unet.init_params``,
+  ``convert.load_npz`` and ``synthetic.laterality_params`` give) into the
+  port's tree of torch tensors (OIHW kernels), so both packages compute the
+  same function on the same weights.
+* :func:`load_npz` / :func:`save_npz` read and write the JAX package's flat
+  ``.npz`` format unchanged.
+* :func:`convert_pth` takes a reference ``.pth`` state dict (production
+  layout) through the same BatchNorm fold (eps 1e-5) into the HWIO numpy tree.
+
+Conversion rules (reference U-Net, lungmask/resunet.py): conv kernels are
+OIHW in torch and HWIO in the JAX tree; inference-mode BatchNorm folds into
+``scale = gamma / sqrt(running_var + eps)``, ``bias = beta - running_mean *
+scale``; ``n_classes`` is the length of the final conv bias, the last tensor
+of the state dict (lungmask/mask.py:56).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from lungmask_tpu_torch.models.unet import BN_EPS
+
+Params = Dict[str, Any]
+
+
+def from_jax_params(params: Params, device="cpu") -> Params:
+    """JAX-layout numpy tree → port tree of float32 tensors on ``device``:
+    4-D kernels HWIO → OIHW, everything else as is."""
+    if isinstance(params, dict):
+        return {k: from_jax_params(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [from_jax_params(v, device) for v in params]
+    a = np.asarray(params, dtype=np.float32)
+    if a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)
+    return torch.from_numpy(np.array(a, order="C")).to(device)  # an owned copy
+
+
+def _to_numpy(t) -> np.ndarray:
+    if isinstance(t, np.ndarray):
+        return t
+    return t.detach().cpu().numpy()
+
+
+def _conv(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    w = _to_numpy(sd[prefix + ".weight"]).astype(np.float32)
+    b = _to_numpy(sd[prefix + ".bias"]).astype(np.float32)
+    return {"w": np.transpose(w, (2, 3, 1, 0)), "b": b}  # OIHW → HWIO
+
+
+def _folded_bn(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    gamma = _to_numpy(sd[prefix + ".weight"]).astype(np.float64)
+    beta = _to_numpy(sd[prefix + ".bias"]).astype(np.float64)
+    mean = _to_numpy(sd[prefix + ".running_mean"]).astype(np.float64)
+    var = _to_numpy(sd[prefix + ".running_var"]).astype(np.float64)
+    scale = gamma / np.sqrt(var + BN_EPS)
+    bias = beta - mean * scale
+    return {"scale": scale.astype(np.float32), "bias": bias.astype(np.float32)}
+
+
+def _conv_block(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    """Non-residual, batch_norm=True block (the production layout)."""
+    return {
+        "conv1": _conv(sd, prefix + ".block.0"),
+        "bn1": _folded_bn(sd, prefix + ".block.2"),
+        "conv2": _conv(sd, prefix + ".block.3"),
+        "bn2": _folded_bn(sd, prefix + ".block.5"),
+    }
+
+
+def convert_state_dict(state_dict: Mapping[str, Any]) -> Params:
+    """Production-layout torch state dict → JAX-layout numpy tree. The
+    residual and upconv layouts raise: ROADMAP.md queue 1, item 8."""
+    depth = 1 + max(
+        int(k.split(".")[1]) for k in state_dict if k.startswith("down_path.")
+    )
+    if "down_path.1.block.0.weight" not in state_dict or "up_path.0.up.weight" in state_dict:
+        raise NotImplementedError(
+            "only the production (non-residual, upsample) U-Net layout is "
+            "ported; the variants are ROADMAP.md queue 1, item 8"
+        )
+    if "down_path.1.block.2.running_mean" not in state_dict:
+        raise NotImplementedError("batch_norm=False checkpoints are not supported")
+    down = [_conv_block(state_dict, f"down_path.{i}") for i in range(depth)]
+    up = [
+        {
+            "proj": _conv(state_dict, f"up_path.{i}.up.1"),
+            "conv_block": _conv_block(state_dict, f"up_path.{i}.conv_block"),
+        }
+        for i in range(depth - 1)
+    ]
+    return {"down": down, "up": up, "last": _conv(state_dict, "last")}
+
+
+def convert_pth(path: str) -> Tuple[Params, int]:
+    """Reference ``.pth`` checkpoint → (JAX-layout numpy tree, n_classes)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = {k: _to_numpy(v) for k, v in sd.items()}
+    return convert_state_dict(sd), len(list(sd.values())[-1])
+
+
+def flatten_params(params: Params) -> Dict[str, np.ndarray]:
+    flat: Dict[str, np.ndarray] = {}
+
+    def add(prefix: str, tree) -> None:
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                add(f"{prefix}.{k}" if prefix else k, v)
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                add(f"{prefix}.{i}", v)
+        else:
+            flat[prefix] = np.asarray(tree)
+
+    add("", params)
+    return flat
+
+
+def unflatten_params(flat: Mapping[str, np.ndarray]) -> Params:
+    """Inverse of :func:`flatten_params`: dot-separated paths, all-digit
+    components become list indices."""
+    nested: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split(".")
+        node = nested
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.asarray(value)
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(nested)
+
+
+def save_npz(path: str, params: Params, meta: Dict[str, Any] | None = None) -> None:
+    """Write the JAX package's ``.npz`` format (atomic: tmp + rename)."""
+    flat = flatten_params(params)
+    flat["__meta__"] = np.frombuffer(
+        json.dumps(meta or {}).encode("utf-8"), dtype=np.uint8
+    )
+    tmp = path + ".part"
+    np.savez(tmp, **flat)
+    saved = tmp if os.path.exists(tmp) else tmp + ".npz"  # savez may append
+    os.replace(saved, path)
+
+
+def load_npz(path: str) -> Tuple[Params, Dict[str, Any]]:
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files if k != "__meta__"}
+        meta = (
+            json.loads(bytes(data["__meta__"]).decode("utf-8"))
+            if "__meta__" in data.files
+            else {}
+        )
+    return unflatten_params(flat), meta

@@ -1,0 +1,179 @@
+"""Hybrid preprocessing: packed threshold bits → device bodymask/boxes → host
+crop + resize + normalize (counterpart of the hybrid half of
+``lungmask_tpu.transforms.preprocess``).
+
+1. host: nearest-subsample every slice to 128² with the exact scipy order-0
+   plan, threshold at −500 HU, pack to bits (:func:`pack_bodymask_bits`);
+2. device: bodymask → crop boxes (:func:`_boxes_from_packed`), through K1
+   (``ops/kernels/bodymask.py``) and plain torch for the rest;
+3. host: fused crop + scipy-exact float64 bilinear resize + HU window +
+   normalize (native C++ core, scipy fallback), then one upload of the 256²
+   stack, cast to the compute dtype on the device.
+
+Slices smaller than 128² need the strict host pipeline, which is ROADMAP.md
+queue 1, item 3; they raise ``NotImplementedError`` here.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from lungmask_tpu_torch.ops import cc, morphology, resample
+from lungmask_tpu_torch.ops.kernels.bodymask import bodymask_labels
+
+HU_LO = -1024
+HU_HI = 600
+BODY_THRESHOLD = -500
+
+
+def pack_bodymask_bits(volume: np.ndarray) -> np.ndarray:
+    """(N, H, W) HU volume → (N, 128, 16) uint8 packed body-threshold bits.
+
+    Order-0 subsample to 128² (scipy plan, zero-filled out-of-bounds samples —
+    and 0 > −500 is *body*, the quirk the full-resolution paths inherit from
+    scipy's cval=0), threshold −500 HU. Clipping to [−1024, 600] commutes with
+    the gather and never changes the threshold predicate, so it is skipped.
+    """
+    n, h, w = volume.shape
+    ridx, roob = resample._axis_plan_np(h, 128, 0)
+    cidx, coob = resample._axis_plan_np(w, 128, 0)
+    # One fused gather straight to (N, 128, 128).
+    mask = volume[:, ridx[:, None], cidx[None, :]] > BODY_THRESHOLD
+    if roob.any():
+        mask[:, roob, :] = True
+    if coob.any():
+        mask[:, :, coob] = True
+    return np.packbits(mask, axis=-1)
+
+
+def _bodymask128_from_labels(labels: torch.Tensor, eroded: torch.Tensor) -> torch.Tensor:
+    """Largest-region keep + dilation ×2 given the 4-connected labels of the
+    eroded masks, per plane. A plane without a region keeps its eroded mask
+    (the reference's guard, lungmask/utils.py:77-80)."""
+    has_region = (labels > 0).flatten(1).any(dim=1).view(-1, 1, 1)
+    largest = cc.largest_component_mask(labels)
+    dilated = morphology.binary_dilation(largest, iterations=2)
+    return torch.where(has_region, dilated, eroded)
+
+
+def _upzoom_box_tables(src: int, dst: int, device) -> torch.Tensor:
+    """idx[i] = the 128-grid source index of output row i of an order-0
+    upzoom, with scipy-oob rows (always trailing) replaced by the sentinel
+    ``src`` so they never fall inside a box."""
+    idx, oob = resample._axis_plan_np(src, dst, 0)
+    idx = idx.astype(np.int32)
+    idx[oob] = src
+    return torch.from_numpy(idx).to(device)
+
+
+def _box_from_mask(shape: Tuple[int, int], mask128: torch.Tensor) -> torch.Tensor:
+    """(N, 4) int32 crop boxes (r0, c0, r1, c1) of (N, 128, 128) bodymasks for
+    slices of ``shape`` ≥ 128².
+
+    The reference nearest-upzooms the bodymask, relabels it 8-connected at
+    full resolution and boxes the first region (lungmask/utils.py:82,98-106).
+    For upzooms, the first full-resolution component is the image of the
+    first 128² component, so its box is the preimage range of the 128² box
+    through the static zoom tables (the JAX package's ``_box_from_mask``
+    gives the argument and its one caveat, which the bodymask chain cannot
+    trigger). A plane without a region boxes the full image.
+    """
+    h, w = shape
+    if h < 128 or w < 128:
+        raise NotImplementedError(
+            f"slices of {h}x{w} (< 128²) need the strict host pipeline, which "
+            "is not ported yet (ROADMAP.md queue 1, item 3)"
+        )
+    labels = cc.label(mask128)  # 8-connectivity at 128²
+    box128 = cc.first_component_bbox(labels)
+    ridx = _upzoom_box_tables(128, h, mask128.device)
+    cidx = _upzoom_box_tables(128, w, mask128.device)
+    r0 = torch.searchsorted(ridx, box128[:, 0].contiguous(), side="left")
+    r1 = torch.searchsorted(ridx, (box128[:, 2] - 1).contiguous(), side="right")
+    c0 = torch.searchsorted(cidx, box128[:, 1].contiguous(), side="left")
+    c1 = torch.searchsorted(cidx, (box128[:, 3] - 1).contiguous(), side="right")
+    mapped = torch.stack([r0, c0, r1, c1], dim=1).to(torch.int32)
+    has_region = (labels > 0).flatten(1).any(dim=1, keepdim=True)
+    full = torch.tensor([0, 0, h, w], dtype=torch.int32, device=mask128.device)
+    return torch.where(has_region, mapped, full)
+
+
+def smalls_from_packed(packed: torch.Tensor) -> torch.Tensor:
+    """(N, 128, 16) packed threshold bits → (N, 128, 128) int16 HU, body ↦ 0
+    (> −500) and background ↦ −1024, so the bodymask kernel runs unchanged."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed.unsqueeze(-1) >> shifts) & 1
+    thresholded = bits.reshape(packed.shape[0], 128, 128) != 0
+    return torch.where(
+        thresholded,
+        torch.zeros((), dtype=torch.int16, device=packed.device),
+        torch.full((), HU_LO, dtype=torch.int16, device=packed.device),
+    )
+
+
+def _boxes_from_packed(
+    packed: torch.Tensor, shape: Tuple[int, int]
+) -> torch.Tensor:
+    """(N, 128, 16) packed threshold bits → (N, 4) int32 crop boxes, on the
+    device ``packed`` lies on."""
+    labels, eroded = bodymask_labels(smalls_from_packed(packed))
+    masks = _bodymask128_from_labels(labels, eroded)
+    return _box_from_mask(shape, masks)
+
+
+def _crop_resize_normalize_scipy(
+    volume: np.ndarray, boxes: np.ndarray, resolution: Tuple[int, int]
+) -> np.ndarray:
+    """scipy fallback for the host resample+normalize stage (clip → crop →
+    zoom order=1 → window/scale)."""
+    from scipy import ndimage
+
+    clipped = np.clip(volume, HU_LO, HU_HI)
+    out = np.empty((volume.shape[0],) + tuple(resolution), dtype=np.float32)
+    target = np.asarray(resolution, dtype=np.float64)
+    for i, (r0, c0, r1, c1) in enumerate(boxes):
+        cropped = clipped[i, r0:r1, c0:c1]
+        resized = ndimage.zoom(cropped, target / np.asarray(cropped.shape), order=1)
+        resized = np.asarray(resized, dtype=np.float64)
+        resized[resized > HU_HI] = HU_HI
+        out[i] = (resized + 1024.0) / 1624.0
+    return out
+
+
+def crop_resize_normalize_host(
+    volume: np.ndarray, boxes: np.ndarray, resolution: Tuple[int, int]
+) -> np.ndarray:
+    """Fused host crop+resize+normalize: native C++ core, scipy fallback
+    (float volumes always take the scipy path)."""
+    from lungmask_tpu_torch.ops import native
+
+    out = native.crop_resize_normalize(volume, boxes, resolution)
+    if out is None:
+        out = _crop_resize_normalize_scipy(volume, boxes, resolution)
+    return out
+
+
+def preprocess_hybrid(
+    volume: np.ndarray,
+    resolution: Tuple[int, int] = (256, 256),
+    compute_dtype: torch.dtype = torch.float32,
+    device="cpu",
+) -> Tuple[torch.Tensor, np.ndarray]:
+    """Transfer-lean preprocessing of a (N, H, W) HU volume.
+
+    Returns:
+        normalized: (N, res, res) tensor on ``device`` in [0, 1], in
+            ``compute_dtype`` (the float32 → bf16 cast rounds to nearest
+            even, as the JAX host cast does).
+        boxes: (N, 4) int32 numpy crop boxes.
+    """
+    n, h, w = volume.shape
+    device = torch.device(device)
+    packed = torch.from_numpy(pack_bodymask_bits(volume)).to(device)
+    boxes = _boxes_from_packed(packed, (h, w)).cpu().numpy()
+    normalized = crop_resize_normalize_host(volume, boxes, resolution)
+    out = torch.from_numpy(normalized).to(device).to(compute_dtype)
+    return out, boxes

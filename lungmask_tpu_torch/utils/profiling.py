@@ -1,0 +1,51 @@
+"""Per-stage wall-clock timing (counterpart of ``lungmask_tpu.utils.profiling``).
+
+:class:`StageTimer` accumulates seconds per pipeline stage across volumes and
+is exposed as ``LMInferer.timings``. A stage that launches device work must
+end in a synchronisation for its time to mean anything; the inferer's stages
+all end in a host copy, which synchronises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from collections import defaultdict
+from typing import Dict, Iterator
+
+
+class StageTimer:
+    def __init__(self):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+        # '+=' on the defaultdicts is not atomic; serialize the update.
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def stage(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.totals[name] += dt
+                self.counts[name] += 1
+
+    def summary(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(sorted(self.totals.items(), key=lambda kv: -kv[1]))
+
+    def reset(self) -> None:
+        with self._lock:
+            self.totals.clear()
+            self.counts.clear()
+
+    def report(self) -> str:
+        total = sum(self.totals.values()) or 1.0
+        lines = [
+            f"  {name:<20s} {secs:8.3f}s ({100 * secs / total:5.1f}%)  x{self.counts[name]}"
+            for name, secs in self.summary().items()
+        ]
+        return "\n".join(lines)

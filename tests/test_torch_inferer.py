@@ -1,0 +1,150 @@
+"""The port's LMInferer and CLI against the JAX package's, end to end.
+
+At float32 on a small lung phantom with the crafted laterality weights
+(wf=2) both packages must give the same mask voxel for voxel: the same
+bodymask boxes, the same float64 host resample, U-Net logits that agree to
+float32 rounding far from every class boundary, and the same native
+postprocessing and paste-back.
+"""
+
+import functools
+import os
+import unittest.mock as mock
+
+import numpy as np
+import pytest
+import torch
+
+import torch_parity  # noqa: F401  (one torch thread per worker)
+import lungmask_tpu
+import lungmask_tpu.cli
+import lungmask_tpu_torch.cli
+from lungmask_tpu_torch import LMInferer
+from lungmask_tpu_torch.inferer import resolve_device
+from lungmask_tpu_torch.io import image, loader, nifti
+from lungmask_tpu_torch.models import convert, synthetic
+
+N_SLICES, SIZE = 4, 160
+
+
+@pytest.fixture(scope="module")
+def weights(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("w") / "laterality_wf2.npz")
+    convert.save_npz(path, synthetic.laterality_params(wf=2))
+    return path
+
+
+@pytest.fixture(scope="module")
+def phantom():
+    return synthetic.lung_phantom(N_SLICES, size=SIZE)
+
+
+@pytest.fixture(scope="module")
+def jax_inferers(weights):
+    kw = dict(modelpath=weights, precision="float32", tqdm_disable=True, batch_size=2)
+    return {
+        post: lungmask_tpu.LMInferer(volume_postprocessing=post, **kw)
+        for post in (True, False)
+    }
+
+
+def _ras_image(vol):
+    """A non-LPS image (RAS: x and y flipped) with the phantom's voxels."""
+    return image.MedicalImage(vol, spacing=(0.7, 0.7, 2.5), direction=np.diag([-1.0, -1.0, 1.0]))
+
+
+@pytest.mark.parametrize("post", [True, False])
+@pytest.mark.parametrize("kind", ["numpy", "image"])
+def test_apply_equals_jax(weights, phantom, jax_inferers, kind, post):
+    inp = phantom if kind == "numpy" else _ras_image(phantom)
+    if kind == "image":
+        assert inp.orientation() == "RAS"
+    port = LMInferer(
+        modelpath=weights, device="cpu", precision="float32", tqdm_disable=True,
+        batch_size=2, volume_postprocessing=post,
+    )
+    got = port.apply(inp)
+    want = jax_inferers[post].apply(inp)
+    assert got.dtype == np.uint8 and got.shape == phantom.shape
+    np.testing.assert_array_equal(got, want)
+    assert set(np.unique(got)) == {0, 1, 2}
+    assert set(port.timings.summary()) == (
+        {"preprocess", "unet", "postprocess", "paste_back"} if post
+        else {"preprocess", "unet", "paste_back"}
+    )
+
+
+def test_split_phase_equals_apply(weights, phantom):
+    port = LMInferer(modelpath=weights, device="cpu", precision="float32", tqdm_disable=True)
+    pre = port.preprocess_image(_ras_image(phantom))
+    assert pre["normalized"].shape == (N_SLICES, 256, 256)
+    np.testing.assert_array_equal(port.apply_preprocessed(pre), port.apply(_ras_image(phantom)))
+
+
+def test_cli_nifti_equals_jax_cli(weights, phantom, tmp_path):
+    src = str(tmp_path / "in.nii.gz")
+    nifti.write(_ras_image(phantom), src)
+    f32 = "float32"
+    with mock.patch.object(
+        lungmask_tpu.cli, "LMInferer",
+        functools.partial(lungmask_tpu.cli.LMInferer, precision=f32),
+    ):
+        lungmask_tpu.cli.main(
+            [src, str(tmp_path / "jax.nii.gz"), "--modelpath", weights, "--noprogress",
+             "--batchsize", "2"]
+        )
+    with mock.patch.object(
+        lungmask_tpu_torch.cli, "LMInferer",
+        functools.partial(lungmask_tpu_torch.cli.LMInferer, precision=f32),
+    ):
+        lungmask_tpu_torch.cli.main(
+            [src, str(tmp_path / "port.nii.gz"), "--modelpath", weights, "--noprogress",
+             "--cpu"]
+        )
+    got = loader.load_input_image(str(tmp_path / "port.nii.gz"))
+    want = loader.load_input_image(str(tmp_path / "jax.nii.gz"))
+    np.testing.assert_array_equal(got.array, want.array)
+    np.testing.assert_allclose(got.direction, want.direction)
+    assert got.orientation() == "RAS" and set(np.unique(got.array)) == {0, 1, 2}
+
+
+def test_no_silent_cpu_fallback(weights):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMInferer(modelpath=weights)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device(None, force_cpu=True).type == "cpu"
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize(
+    "kwargs, item",
+    [
+        ({"fillmodel": "R231"}, 4),
+        ({"preprocessing": "device"}, 5),
+        ({"postprocessing_mode": "device"}, 6),
+        ({"mesh": object()}, 10),
+    ],
+)
+def test_unported_options_raise(weights, kwargs, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        LMInferer(modelpath=weights, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int8, np.bool_, np.int16, np.float32])
+def test_hu_capable_promotion_equals_jax(dtype):
+    arr = np.zeros((1, 2, 2), dtype)
+    got = LMInferer._hu_capable(arr)
+    assert got.dtype == lungmask_tpu.LMInferer._hu_capable(arr).dtype
+
+
+def test_loader_is_nifti_only(tmp_path):
+    path = str(tmp_path / "x.mha")
+    open(path, "wb").close()
+    with pytest.raises(NotImplementedError, match="item 2"):
+        loader.load_input_image(path)
+    with pytest.raises(NotImplementedError, match="item 2"):
+        loader.write_image(image.MedicalImage(np.zeros((1, 2, 2), np.uint8)), path)
+    assert os.path.getsize(path) == 0

@@ -1,0 +1,78 @@
+"""The port's U-Net against ``lungmask_tpu.models.unet`` on the same weights.
+
+Weights: the tree of ``unet.init_params`` (its shapes, via ``eval_shape``)
+filled from a numpy seed — conv weights and biases U(−1/√fan_in, 1/√fan_in)
+as torch's default init, folded-BN affines random around identity.
+
+Tolerances (narrow net, wf=2):
+* float32: logits within atol = rtol = 1e-4 of JAX's HIGHEST-precision
+  logits (both accumulate in float32 in different orders; the measured
+  difference is ~1e-6), and an identical argmax (the smallest top-2 logit
+  gap on these inputs is ~1e-4).
+* bfloat16: at least 99% argmax agreement with JAX bf16 — the torch bf16
+  conv rounds its output before the float32 bias/ReLU/affine where JAX keeps
+  the float32 accumulator, so the two differ by bf16 rounding.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_parity as tp
+from lungmask_tpu.models import unet as junet
+from lungmask_tpu_torch.models import convert, unet
+
+WF = 2
+
+
+@pytest.fixture(scope="module")
+def params():
+    return tp.random_params(n_classes=3, wf=WF, seed=1)
+
+
+def _inputs(n, h, w, seed=0):
+    return tp.blocky_slices(n, h, w, seed)
+
+
+def _jax_logits(params, x, dtype):
+    return np.asarray(junet.unet_logits(params, jnp.asarray(x), compute_dtype=dtype))
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (66, 70)])  # (66, 70) needs _center_crop
+def test_float32_logits_match(params, hw):
+    x = _inputs(2, *hw)
+    want = _jax_logits(params, x, jnp.float32)
+    model = unet.UNet(convert.from_jax_params(params), torch.float32)
+    with torch.inference_mode():
+        got = unet.unet_logits(model, torch.from_numpy(x)).numpy()
+        am = unet.unet_argmax(model, torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(am, want.argmax(-1))
+    assert am.dtype == np.uint8
+    assert len(np.unique(am)) >= 2  # the argmax check bites
+
+
+def test_bfloat16_argmax_agreement(params):
+    x = _inputs(2, 64, 64, seed=1)
+    want = _jax_logits(params, x, jnp.bfloat16).argmax(-1)
+    model = unet.UNet(convert.from_jax_params(params), torch.bfloat16)
+    with torch.inference_mode():
+        got = unet.unet_argmax(model, torch.from_numpy(x)).numpy()
+    assert model.wl.dtype == torch.bfloat16 and model.down[0].b1.dtype == torch.float32
+    assert (got == want).mean() >= 0.99
+
+
+def test_from_jax_params_layout(params):
+    tp = convert.from_jax_params(params)
+    w = params["down"][1]["conv1"]["w"]  # HWIO
+    assert tuple(tp["down"][1]["conv1"]["w"].shape) == (w.shape[3], w.shape[2], 3, 3)
+    np.testing.assert_array_equal(tp["down"][1]["conv1"]["w"].numpy()[5, 2], w[:, :, 2, 5])
+    assert unet.n_classes_of(tp) == junet.n_classes_of(params) == 3
+
+
+def test_variants_wait(params):
+    bad = dict(params, up=[dict(params["up"][0], upconv={})] + params["up"][1:])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        unet.UNet(convert.from_jax_params(bad))
