@@ -3,18 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds every kernel of the main path from the sources in this checkout,
-checks each against its plain PyTorch version on the card, then drives the
-main path — ``LMInferer(...).apply`` and the ``lungmask-torch INPUT OUTPUT``
-CLI with their defaults (hybrid preprocessing, bf16 U-Net, exact host
-postprocessing) — at the production width (R231 U-Net, wf=6) with the
-crafted laterality weights on a 192-slice 512² lung phantom made from a seed.
+Builds every kernel of the port from the sources in this checkout (K1, the
+bodymask; K2 and K3, the U-Net's pooling and upsampling; all nvcc builds
+started together), checks each against its plain PyTorch version on the
+card, then drives two paths at the production width (U-Net wf=6) on a
+192-slice 512² lung phantom made from a seed, with crafted weights:
 
-Phases: device, build, kernel, unet, inferer, cli; each prints its results
-on its own lines. The second-to-last line is a JSON object describing the
-kernels; the last line is ``{"ok": true, "device": {...}}`` and is printed
-only when every phase passed. Exits non-zero, printing no result, when no
-CUDA device is available or any phase fails. Imports nothing of JAX.
+* the fused two-model path — ``LMInferer(modelname="LTRCLobes",
+  fillmodel="R231")`` and the CLI's ``--modelname LTRCLobes_R231``, both
+  models from a temporary ``$LUNGMASK_TPU_CACHE``;
+* the main path — ``LMInferer(...).apply`` and the ``lungmask-torch INPUT
+  OUTPUT`` CLI with their defaults (hybrid preprocessing, bf16 U-Net, exact
+  host postprocessing).
+
+Each path's apply calls run with every kernel's launch count set to 0 just
+before them and read just after.
+
+Phases: device, build, kernel, unet, stencil, fused, inferer, cli; each
+prints its results on its own lines. The second-to-last line is a JSON
+object describing the kernels; the last line is ``{"ok": true, "device":
+{...}}`` and is printed only when every phase passed. Exits non-zero,
+printing no result, when no CUDA device is available or any phase fails.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -26,11 +36,23 @@ import sys
 import tempfile
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 K1_SOURCE = "lungmask_tpu_torch/csrc/bodymask.cu"
 K1_REPLACES = "lungmask_tpu/ops/pallas/bodymask.py:136"
+STENCIL_SOURCE = "lungmask_tpu_torch/csrc/stencil.cu"
+K2_REPLACES = "lungmask_tpu/ops/pallas/stencil.py:58"
+K3_REPLACES = "lungmask_tpu/ops/pallas/stencil.py:126"
+CHUNK = 32  # the engine's default batch: 192 slices are 6 chunks
+# The U-Net's stencil inputs per chunk at wf=6 (NHWC): its four pools and
+# its four upsamples.
+POOL_SHAPES = [(CHUNK, 256, 256, 64), (CHUNK, 128, 128, 128), (CHUNK, 64, 64, 256),
+               (CHUNK, 32, 32, 512)]
+UP_SHAPES = [(CHUNK, 16, 16, 1024), (CHUNK, 32, 32, 512), (CHUNK, 64, 64, 256),
+             (CHUNK, 128, 128, 128)]
+ODD_SHAPES = [(3, 33, 35, 4), (2, 17, 9, 12), (1, 3, 3, 5), (2, 8, 8, 3)]
 UNET_LOGIT_ATOL, UNET_LOGIT_RTOL = 1e-3, 1e-4  # GPU f32 (TF32 off) vs CPU f32
 BF16_MIN_AGREEMENT = 0.98  # GPU bf16 argmax vs GPU f32, a gross check
 LUNG_MIN_FRACTION = 0.95  # share of each phantom lung given its class
@@ -86,6 +108,56 @@ def _random_slices(seed: int, b: int):
     return out + rng.normal(0, 20, out.shape).astype(np.float32)
 
 
+def _random_params(seed: int, n_classes: int = 3):
+    """Production-width U-Net weights from a numpy seed: convs
+    U(±1/√fan_in) as torch's default init, folded-BN affines around
+    identity, a widened head without bias so the class varies by pixel.
+    Unlike the crafted weights, every level and both stencils reach the
+    logits."""
+    import numpy as np
+
+    from lungmask_tpu_torch.models import synthetic
+
+    rng = np.random.default_rng(seed)
+
+    def fill(node):
+        if isinstance(node, list):
+            return [fill(v) for v in node]
+        if "w" in node:
+            bound = 1.0 / np.sqrt(np.prod(node["w"].shape[:3]))
+            return {k: rng.uniform(-bound, bound, v.shape).astype(np.float32)
+                    for k, v in node.items()}
+        if "scale" in node:
+            return {"scale": rng.uniform(0.5, 1.5, node["scale"].shape).astype(np.float32),
+                    "bias": rng.uniform(-0.2, 0.2, node["bias"].shape).astype(np.float32)}
+        return {k: fill(v) for k, v in node.items()}
+
+    params = fill(synthetic.zero_params(n_classes))
+    params["last"]["w"] *= 64.0
+    params["last"]["b"][:] = 0.0
+    return params
+
+
+def _kernels():
+    """The launch-counted wrappers: K1, K2, K3."""
+    from lungmask_tpu_torch.ops.kernels import bodymask, stencil
+
+    return {
+        "bodymask_labels": bodymask.bodymask_labels,
+        "avg_pool2": stencil.avg_pool2,
+        "bilinear_up2": stencil.bilinear_up2,
+    }
+
+
+def _reset_launches() -> None:
+    for fn in _kernels().values():
+        fn.launches = 0
+
+
+def _launches() -> dict:
+    return {name: fn.launches for name, fn in _kernels().items()}
+
+
 class Smoke:
     def __init__(self, torch):
         self.torch = torch
@@ -127,13 +199,21 @@ class Smoke:
     def build(self):
         from lungmask_tpu_torch.ops import native
         from lungmask_tpu_torch.ops.kernels import bodymask as k1
+        from lungmask_tpu_torch.ops.kernels import stencil
 
+        def timed(fn):
+            t0 = time.perf_counter()
+            out = fn()
+            return out, time.perf_counter() - t0
+
+        # One compiler per source, all started together.
         t0 = time.perf_counter()
-        k1.build()
-        t1 = time.perf_counter()
-        loaded = native.native_loaded()
-        t2 = time.perf_counter()
-        print(f"[build] K1 nvcc {t1 - t0:.2f} s | host core g++ {t2 - t1:.2f} s")
+        with ThreadPoolExecutor(max_workers=3) as ex:
+            jobs = [ex.submit(timed, fn) for fn in (k1.build, stencil.build, native.native_loaded)]
+            (_, t_k1), (_, t_st), (loaded, t_host) = [job.result() for job in jobs]
+        wall = time.perf_counter() - t0
+        print(f"[build] K1 nvcc {t_k1:.2f} s | K2+K3 nvcc {t_st:.2f} s | host core g++ "
+              f"{t_host:.2f} s | all, in parallel, {wall:.2f} s")
         self.check(loaded, "the native host core did not build or load")
 
     def kernel(self):
@@ -190,17 +270,33 @@ class Smoke:
         gpu32 = unet.UNet(convert.from_jax_params(params, dev), torch.float32).eval()
         cpu32 = unet.UNet(convert.from_jax_params(params), torch.float32).eval()
         gpu16 = unet.UNet(convert.from_jax_params(params, dev), torch.bfloat16).eval()
+        # The crafted weights zero the decoder's projections, so only random
+        # weights carry K2's and K3's outputs (GPU) and their plain versions
+        # (CPU) into the logits.
+        rnd = _random_params(0)
+        rnd32 = unet.UNet(convert.from_jax_params(rnd, dev), torch.float32).eval()
+        rnd32_cpu = unet.UNet(convert.from_jax_params(rnd), torch.float32).eval()
         with torch.inference_mode():
             lg = gpu32(x[:2]).cpu()
             lc = cpu32(x[:2].cpu())
             diff = (lg - lc).abs()
             bound = UNET_LOGIT_ATOL + UNET_LOGIT_RTOL * lc.abs()
             same_argmax = torch.equal(lg.argmax(-1), lc.argmax(-1))
-            print(f"[unet] 2 slices GPU f32 (TF32 off) vs CPU f32: max |dlogit| "
-                  f"{float(diff.max()):.3e} (bound {UNET_LOGIT_ATOL} + {UNET_LOGIT_RTOL}*|x|), "
-                  f"identical argmax {same_argmax}")
+            print(f"[unet] 2 slices GPU f32 (TF32 off) vs CPU f32, crafted weights: max "
+                  f"|dlogit| {float(diff.max()):.3e} (bound {UNET_LOGIT_ATOL} + "
+                  f"{UNET_LOGIT_RTOL}*|x|), identical argmax {same_argmax}")
             self.check(bool((diff <= bound).all()), "GPU f32 logits outside the bound")
             self.check(same_argmax, "GPU f32 argmax differs from CPU f32")
+            rg = rnd32(x[:2]).cpu()
+            rc = rnd32_cpu(x[:2].cpu())
+            rdiff = (rg - rc).abs()
+            agree_r = float((rg.argmax(-1) == rc.argmax(-1)).float().mean())
+            print(f"[unet] 2 slices GPU f32 (K2, K3) vs CPU f32 (plain versions), random "
+                  f"weights: max |dlogit| {float(rdiff.max()):.3e} of max |logit| "
+                  f"{float(rc.abs().max()):.3e}, argmax agreement {agree_r:.6f}, "
+                  f"classes {sorted(int(c) for c in torch.unique(rc.argmax(-1)))}")
+            self.check(bool((rdiff <= UNET_LOGIT_ATOL + UNET_LOGIT_RTOL * rc.abs()).all()),
+                       "GPU f32 logits of the random weights outside the bound")
             a32 = unet.unet_argmax(gpu32, x)
             a16 = unet.unet_argmax(gpu16, x)
             agree = float((a32 == a16).float().mean())
@@ -214,12 +310,156 @@ class Smoke:
         self.check(agree >= BF16_MIN_AGREEMENT, f"bf16 agreement {agree} < {BF16_MIN_AGREEMENT}")
         self.check(classes == [0, 1, 2], f"expected classes 0-2, got {classes}")
 
+    def stencil(self):
+        import numpy as np
+        import torch.nn.functional as F
+
+        torch = self.torch
+        from lungmask_tpu_torch.ops.kernels import stencil as st
+
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ops = {  # name: (wrapper, plain version, library op on the channels_last view)
+            "avg_pool2": (st.avg_pool2, st.avg_pool2_reference, "F.avg_pool2d",
+                          lambda x: F.avg_pool2d(x.permute(0, 3, 1, 2), 2)),
+            "bilinear_up2": (st.bilinear_up2, st.bilinear_up2_reference, "F.interpolate",
+                             lambda x: F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                                                     mode="bilinear", align_corners=False)),
+        }
+        cases = [("avg_pool2", s) for s in POOL_SHAPES] + [("bilinear_up2", s) for s in UP_SHAPES]
+        cases += [(name, s) for s in ODD_SHAPES for name in ops]
+        cases.append(("bilinear_up2", (1, 1, 3, 5)))  # one row: both clamps meet
+        errs = {name: 0.0 for name in ops}
+        sums = {name: {"kernel": 0.0, "plain": 0.0, "library": 0.0} for name in ops}
+        for name, shape in cases:
+            kern, plain, lib_name, lib = ops[name]
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+                got, want = kern(x), plain(x)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                same = torch.equal(got.view(bits), want.view(bits))
+                errs[name] = max(errs[name], err)
+                dt = str(dtype).split(".")[-1]
+                if not (dtype == torch.bfloat16 and shape[0] == CHUNK):
+                    print(f"[stencil] {name} {shape} {dt}: max_abs_err {err} bit-equal {same}")
+                    self.check(same, f"{name} differs from its plain version at {shape} {dt}")
+                    continue
+                # Median of 10 CUDA-event runs each, in turns: 5 runs of each
+                # in one order, then 5 in the reverse order.
+                fns = {"kernel": lambda: kern(x), "plain": lambda: plain(x),
+                       "library": lambda: lib(x)}
+                times = {k: [] for k in fns}
+                for order in (("kernel", "plain", "library"), ("library", "plain", "kernel")):
+                    for k in order:
+                        times[k] += _times_ms(torch, fns[k], 5)
+                med = {k: float(np.median(v)) for k, v in times.items()}
+                for k in med:
+                    sums[name][k] += med[k]
+                nbytes = (x.numel() + got.numel()) * x.element_size()
+                rate = nbytes / med["kernel"] / 1e6  # GB/s
+                slower = [k for k in ("plain", "library") if med["kernel"] > med[k]]
+                note = (f" | SLOWER than {' and '.join(slower)}; the kernel stays"
+                        if slower else "")
+                print(f"[stencil] {name} {shape} {dt}: max_abs_err {err} bit-equal {same} | "
+                      f"kernel {med['kernel']:.4f} ms ({rate:.1f} GB/s, "
+                      f"{100 * rate / 3350:.1f}% of 3.35 TB/s) | plain {med['plain']:.4f} ms | "
+                      f"{lib_name} {med['library']:.4f} ms{note}")
+                self.check(same, f"{name} differs from its plain version at {shape} {dt}")
+        for name in ops:
+            t = sums[name]
+            print(f"[stencil] {name} per 32-slice bf16 chunk (sum of the U-Net's 4 shapes): "
+                  f"kernel {t['kernel']:.4f} ms | plain {t['plain']:.4f} ms | "
+                  f"{ops[name][2]} {t['library']:.4f} ms")
+        self.state["stencil"] = {
+            name: {"max_abs_err": errs[name], "ms": sums[name]["kernel"],
+                   "plain_ms": sums[name]["plain"]}
+            for name in ops
+        }
+
+    def fused(self):
+        import numpy as np
+
+        from lungmask_tpu_torch import LMInferer
+        from lungmask_tpu_torch.io import image, loader
+        from lungmask_tpu_torch.models import convert, registry, synthetic
+        from lungmask_tpu_torch.ops import native
+
+        tmp = self.state["tmp"]
+        cache = os.path.join(tmp, "cache")
+        os.makedirs(cache, exist_ok=True)
+        for name, params in (
+            ("LTRCLobes", synthetic.laterality_params(n_classes=6, wf=6)),
+            ("R231", synthetic.threshold_params(wf=6)),
+        ):
+            stem = os.path.splitext(os.path.basename(registry.MODEL_URLS[name][0]))[0]
+            convert.save_npz(os.path.join(cache, stem + ".npz"), params)
+        os.environ["LUNGMASK_TPU_CACHE"] = cache
+        vol = self.state["phantom"]
+        inferer = LMInferer(modelname="LTRCLobes", fillmodel="R231", tqdm_disable=True)
+        self.check(inferer.device.type == "cuda" and inferer.fillmodelm.device == inferer.device,
+                   f"fused inferer on {inferer.device}")
+        masks = []
+        _reset_launches()
+        for call in range(2):
+            inferer.timings.reset()
+            t0 = time.perf_counter()
+            masks.append(inferer.apply(vol))
+            wall = time.perf_counter() - t0
+            st = inferer.timings.summary()
+            stages = " ".join(
+                f"{k} {st.get(k, 0.0):.4f}"
+                for k in ("preprocess", "unet", "postprocess", "paste_back", "fusion_postprocess")
+            )
+            print(f"[fused] call {call + 1}: {wall:.4f} s, {vol.shape[0] / wall:.2f} slices/s "
+                  f"| stage s: {stages} (postprocess and paste_back summed over both models, "
+                  f"which may overlap on two threads)")
+        launches = _launches()
+        self.state["fused_launches"] = launches
+        m = masks[0]
+        labels = sorted(int(v) for v in np.unique(m))
+        print(f"[fused] launches in the 2 fused calls: {launches} | labels {labels} | "
+              f"foreground share {float((m > 0).mean()):.4f} | shape {m.shape} {m.dtype}")
+        self.check(np.array_equal(m, masks[1]), "the 2 fused masks differ")
+        self.check(bool(m.any()), "the fused mask is empty")
+        self.check(set(labels) <= set(range(6)), f"labels {labels}")
+        want = {"bodymask_labels": 2, "avg_pool2": 96, "bilinear_up2": 96}
+        self.check(launches == want, f"launches {launches}, expected {want} (6 chunks x 4 x 2 "
+                                     "models of K2 and K3, one K1 per call)")
+        base = LMInferer(modelname="LTRCLobes", tqdm_disable=True).apply(vol)
+        fill = LMInferer(modelname="R231", tqdm_disable=True).apply(vol)
+        ref = native.fused_finish(base, fill)
+        same = ref is not None and np.array_equal(m, ref)
+        print(f"[fused] mask equals native.fused_finish of the two single-model masks: {same} "
+              f"(base labels {sorted(int(v) for v in np.unique(base))}, fill labels "
+              f"{sorted(int(v) for v in np.unique(fill))})")
+        self.check(same, "the fused mask differs from fused_finish of the single-model masks")
+
+        src = os.path.join(tmp, "fused_in.nii.gz")
+        dst = os.path.join(tmp, "fused_out.nii.gz")
+        loader.write_image(image.MedicalImage(vol[:64], spacing=(0.7, 0.7, 2.5)), src)
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "lungmask_tpu_torch", src, dst,
+             "--modelname", "LTRCLobes_R231", "--noprogress"],
+            capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
+        )
+        wall = time.perf_counter() - t0
+        print(f"[fused] CLI --modelname LTRCLobes_R231: rc {res.returncode} in {wall:.2f} s "
+              f"(process start, build check, 64 slices)")
+        self.check(res.returncode == 0, f"CLI failed:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        got = loader.load_input_image(dst).array
+        same = bool(np.array_equal(got, inferer.apply(loader.load_input_image(src))))
+        print(f"[fused] CLI mask read back equals the fused apply voxel for voxel: {same}")
+        self.check(same, "fused CLI mask differs from the fused LMInferer.apply")
+
     def inferer(self):
         import numpy as np
 
         from lungmask_tpu_torch import LMInferer
         from lungmask_tpu_torch.models import convert
-        from lungmask_tpu_torch.ops.kernels import bodymask as k1
 
         vol = self.state["phantom"]
         wpath = os.path.join(self.state["tmp"], "laterality_wf6.npz")
@@ -229,7 +469,7 @@ class Smoke:
         self.state["inferer"] = inferer
         self.check(inferer.device.type == "cuda", f"inferer on {inferer.device}")
         masks = []
-        k1.bodymask_labels.launches = 0
+        _reset_launches()
         for call in range(3):
             inferer.timings.reset()
             t0 = time.perf_counter()
@@ -242,7 +482,7 @@ class Smoke:
             note = " (includes cuDNN warm-up)" if call == 0 else ""
             print(f"[inferer] call {call + 1}: {wall:.4f} s, {vol.shape[0] / wall:.2f} slices/s"
                   f"{note} | stage s: {stages}")
-        launches = k1.bodymask_labels.launches
+        launches = _launches()
         self.state["launches"] = launches
         h, w = vol.shape[1:]
         yy, xx = np.mgrid[0:h, 0:w]
@@ -252,13 +492,15 @@ class Smoke:
         left = float((m[:, lung_l] == 2).mean())
         right = float((m[:, lung_r] == 1).mean())
         labels = sorted(int(v) for v in np.unique(m))
-        print(f"[inferer] K1 launches on the main path: {launches} | labels {labels} | "
+        print(f"[inferer] launches on the main path (3 calls): {launches} | labels {labels} | "
               f"left lung -> 2: {left:.4f} | right lung -> 1: {right:.4f} | "
               f"shape {m.shape} {m.dtype}")
         self.check(all(np.array_equal(m, o) for o in masks[1:]), "the 3 masks differ")
         self.check(set(labels) <= {0, 1, 2}, f"labels {labels}")
         self.check(left >= LUNG_MIN_FRACTION and right >= LUNG_MIN_FRACTION, "lung fractions")
-        self.check(launches == 3, f"K1 launched {launches} times in 3 applies")
+        want = {"bodymask_labels": 3, "avg_pool2": 72, "bilinear_up2": 72}
+        self.check(launches == want, f"launches {launches}, expected {want} (per call one K1 "
+                                     "and 6 chunks x 4 of K2 and K3)")
 
     def cli(self):
         import numpy as np
@@ -298,34 +540,41 @@ def main() -> int:
     smoke = Smoke(torch)
     with tempfile.TemporaryDirectory(prefix="lungmask_smoke_") as tmp:
         smoke.state["tmp"] = tmp
-        for name in ("device", "build", "kernel", "unet", "inferer", "cli"):
-            if name in ("unet", "inferer", "cli") and "phantom" not in smoke.state:
+        # What each phase needs from an earlier one: state key → its maker.
+        needs = {
+            "unet": {"phantom": "kernel"},
+            "fused": {"phantom": "kernel"},
+            "inferer": {"phantom": "kernel", "params": "unet"},
+            "cli": {"phantom": "kernel", "params": "unet", "inferer": "inferer"},
+        }
+        for name in ("device", "build", "kernel", "unet", "stencil", "fused", "inferer", "cli"):
+            missing = [(key, maker) for key, maker in needs.get(name, {}).items()
+                       if key not in smoke.state]
+            if missing:
                 smoke.failures.append(name)
-                print(f"[{name}] FAILED: skipped, the kernel phase made no phantom")
-                continue
-            if name in ("inferer", "cli") and "params" not in smoke.state:
-                smoke.failures.append(name)
-                print(f"[{name}] FAILED: skipped, the unet phase made no weights")
-                continue
-            if name == "cli" and "inferer" not in smoke.state:
-                smoke.failures.append(name)
-                print(f"[{name}] FAILED: skipped, the inferer phase made no inferer")
+                key, maker = missing[0]
+                print(f"[{name}] FAILED: skipped, the {maker} phase made no {key}")
                 continue
             smoke.phase(name, getattr(smoke, name))
     if smoke.failures:
         print(f"chip_smoke: FAILED phases: {', '.join(smoke.failures)}")
         return 1
-    k1 = smoke.state["k1"]
+    measured = {"bodymask_labels": smoke.state["k1"], **smoke.state["stencil"]}
+    sources = {
+        "bodymask_labels": (K1_SOURCE, K1_REPLACES),
+        "avg_pool2": (STENCIL_SOURCE, K2_REPLACES),
+        "bilinear_up2": (STENCIL_SOURCE, K3_REPLACES),
+    }
     print(json.dumps({"kernels": [{
-        "name": "bodymask_labels",
+        "name": name,
         "route": "cuda",
-        "source": K1_SOURCE,
-        "replaces": K1_REPLACES,
-        "launches": smoke.state["launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}))
+        "source": source,
+        "replaces": replaces,
+        "launches": smoke.state["launches"][name],
+        "max_abs_err": measured[name]["max_abs_err"],
+        "ms": measured[name]["ms"],
+        "plain_ms": measured[name]["plain_ms"],
+    } for name, (source, replaces) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

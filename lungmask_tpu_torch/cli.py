@@ -1,13 +1,13 @@
 """Command-line interface: ``lungmask-torch INPUT OUTPUT`` (counterpart of
 ``lungmask_tpu.cli``, also ``python -m lungmask_tpu_torch``).
 
-The reference's flags (lungmask/__main__.py:20-144) for a single model:
-positional input and output, ``--modelname``, ``--modelpath``, ``--cpu``
-(forces batch size 1), ``--nopostprocess``, ``--batchsize``,
-``--noprogress``, ``--version``, ``--removemetadata``. This slice reads and
-writes NIfTI. Not ported yet: the fused ``LTRCLobes_R231`` mode (ROADMAP.md
-queue 1, item 4) and ``--cohort``, ``--serve``, ``--warmup``, ``--noHU``
-and ``--postprocessing`` (item 7).
+The reference's flags (lungmask/__main__.py:20-144): positional input and
+output, ``--modelname`` (``LTRCLobes_R231`` is the fused two-model mode,
+both models from the registry), ``--modelpath``, ``--cpu`` (forces batch
+size 1), ``--nopostprocess``, ``--batchsize``, ``--noprogress``,
+``--version``, ``--removemetadata``. The port reads and writes NIfTI. Not
+ported yet: ``--cohort``, ``--serve``, ``--warmup``, ``--noHU`` and
+``--postprocessing`` (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -86,10 +86,10 @@ def main(argv=None) -> None:
         "them over; only meaningful for metadata-capable formats like DICOM",
     )
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
-    if args.modelname == "LTRCLobes_R231":
+    if args.modelname == "LTRCLobes_R231" and args.modelpath is not None:
         parser.error(
-            "the fused LTRCLobes_R231 mode is not ported to lungmask_tpu_torch "
-            "yet (ROADMAP.md queue 1, item 4)"
+            "the fused LTRCLobes_R231 mode resolves both models from the "
+            "registry; --modelpath is not accepted here"
         )
 
     batchsize = 1 if args.cpu else args.batchsize
@@ -101,14 +101,7 @@ def main(argv=None) -> None:
     )
 
     logger.info("Infer lungmask")
-    inferer = LMInferer(
-        modelname=args.modelname,
-        modelpath=args.modelpath,
-        force_cpu=args.cpu,
-        batch_size=batchsize,
-        volume_postprocessing=not args.nopostprocess,
-        tqdm_disable=args.noprogress,
-    )
+    inferer = _build_inferer(args, batchsize)
     result = inferer.apply(input_image)
 
     result_out = input_image.with_array(result)
@@ -125,6 +118,18 @@ def main(argv=None) -> None:
 
     logger.info(f"Save result to: {args.output}")
     loader.write_image(result_out, args.output)
+
+
+def _build_inferer(args, batchsize: int) -> LMInferer:
+    common = dict(
+        force_cpu=args.cpu,
+        batch_size=batchsize,
+        volume_postprocessing=not args.nopostprocess,
+        tqdm_disable=args.noprogress,
+    )
+    if args.modelname == "LTRCLobes_R231":
+        return LMInferer(modelname="LTRCLobes", fillmodel="R231", **common)
+    return LMInferer(modelname=args.modelname, modelpath=args.modelpath, **common)
 
 
 if __name__ == "__main__":

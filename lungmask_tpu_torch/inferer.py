@@ -1,13 +1,21 @@
 """LMInferer: the public inference orchestrator (counterpart of
-``lungmask_tpu.inferer``), single model.
+``lungmask_tpu.inferer``), with the deprecated ``apply`` / ``apply_fused``.
 
 Same constructor and ``apply()`` contract as the JAX package: a
 geometry-carrying :class:`MedicalImage` is processed in LPS orientation and
 returned in its own; a numpy ``(z, y, x)`` volume passes through. The main
 path is hybrid preprocessing (``transforms/preprocess.py``, the bodymask
-kernel K1 on the device), the U-Net (``runtime/engine.py``), exact host
-postprocessing (``transforms/postprocess.py`` → the native core) and the
-native paste-back.
+kernel K1 on the device), the U-Net (``runtime/engine.py``; its pooling and
+upsampling are the kernels K2 and K3), exact host postprocessing
+(``transforms/postprocess.py`` → the native core) and the native
+paste-back.
+
+The fused two-model mode (``fillmodel=``, the CLI's ``LTRCLobes_R231``)
+preprocesses once, runs both U-Nets chunk by chunk over the one stack,
+finishes each model's mask on its own (postprocess + paste + reorient, on
+two threads where the host has more than one core), and fuses the two with
+the reference's FN-fill / FP-removal rule (``native.fused_finish``;
+reference mask.py:223-232).
 
 Device rule: the device is resolved once. ``force_cpu=True`` or
 ``device="cpu"`` mean the CPU; otherwise a CUDA device is required and its
@@ -18,6 +26,8 @@ from __future__ import annotations
 
 import contextlib
 import os
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Union
 
 import numpy as np
@@ -26,8 +36,8 @@ import torch
 from lungmask_tpu_torch.io.image import MedicalImage, reorient
 from lungmask_tpu_torch.logger import logger
 from lungmask_tpu_torch.models.registry import MODEL_URLS, get_model
-from lungmask_tpu_torch.ops import resample
-from lungmask_tpu_torch.runtime.engine import UNetRunner
+from lungmask_tpu_torch.ops import native, resample
+from lungmask_tpu_torch.runtime.engine import UNetRunner, run_pair_numpy
 from lungmask_tpu_torch.transforms import postprocess, preprocess
 from lungmask_tpu_torch.utils.profiling import StageTimer
 
@@ -86,8 +96,8 @@ class LMInferer:
             modelname: model to apply ('R231', 'LTRCLobes', 'R231CovidWeb').
             modelpath: path to weights (.pth or converted .npz); overrides
                 ``modelname``, and the class count comes from the weights.
-            fillmodel / fillmodel_path: the fused two-model mode — not ported
-                yet (ROADMAP.md queue 1, item 4).
+            fillmodel / fillmodel_path: optional second model for the fused
+                FN-fill/FP-removal mode; it runs on the same device.
             force_cpu: run on the CPU.
             batch_size: slices per forward (default 32).
             volume_postprocessing: connected-component cleanup toggle.
@@ -103,8 +113,10 @@ class LMInferer:
             raise ValueError(
                 f"Modelname not found. Please choose from: {list(MODEL_URLS)}"
             )
-        if fillmodel is not None or fillmodel_path is not None:
-            raise _not_ported("the fused two-model mode (fillmodel)", 4)
+        if fillmodel is not None and fillmodel not in MODEL_URLS:
+            raise ValueError(
+                f"Modelname not found. Please choose from: {list(MODEL_URLS)}"
+            )
         if preprocessing not in (None, "hybrid"):
             raise _not_ported(f"preprocessing={preprocessing!r}", 5)
         if mesh is not None:
@@ -118,21 +130,28 @@ class LMInferer:
         self._compute_dtype = torch.bfloat16 if precision == "bfloat16" else torch.float32
         if modelpath is not None:
             modelname = os.path.basename(modelpath)
+        if fillmodel_path is not None:
+            fillmodel = os.path.basename(fillmodel_path)
         self.modelname = modelname
+        self.fillmodel = fillmodel
         self.batch_size = batch_size
         self.volume_postprocessing = volume_postprocessing
         self.tqdm_disable = tqdm_disable
         self.timings = StageTimer()
         logger.info(f"lungmask_tpu_torch running on {self.device}")
 
-        params, n_classes = get_model(modelname, modelpath)
-        self.model = UNetRunner(
-            params,
-            n_classes,
-            batch_size=batch_size,
-            compute_dtype=self._compute_dtype,
-            device=self.device,
-        )
+        def make_runner(name, path):
+            params, n_classes = get_model(name, path)
+            return UNetRunner(
+                params,
+                n_classes,
+                batch_size=batch_size,
+                compute_dtype=self._compute_dtype,
+                device=self.device,
+            )
+
+        self.model = make_runner(modelname, modelpath)
+        self.fillmodelm = None if fillmodel is None else make_runner(fillmodel, fillmodel_path)
 
     # ------------------------------------------------------------------
 
@@ -233,25 +252,114 @@ class LMInferer:
             "boxes": boxes,
         }
 
-    def forward_preprocessed(self, pre: dict) -> np.ndarray:
-        """Phase 2a: the U-Net forward; returns the host class map."""
+    def forward_preprocessed(self, pre: dict):
+        """Phase 2a: the U-Net forward; returns the host class map, or the
+        pair of maps (base, fill) in the fused mode."""
         with self.timings.stage("unet"):
-            return self.model.run_numpy(pre["normalized"])
+            if self.fillmodelm is None:
+                return self.model.run_numpy(pre["normalized"])
+            return run_pair_numpy(self.model, self.fillmodelm, pre["normalized"])
 
     def finish_forward(self, pre: dict, pred) -> np.ndarray:
-        """Phase 2b: postprocess + paste-back + reorientation."""
-        outmask = self._finish_volume(
-            pred, pre["boxes"], pre["inimg_raw"].shape[1:], self.model.n_classes
-        )
-        return self._from_lps(outmask, pre["curr_orient"], pre["lps_image"])
+        """Phase 2b: postprocess + paste-back + reorientation; in the fused
+        mode each model's mask is finished so, then the two are fused."""
+        shape = pre["inimg_raw"].shape[1:]
+
+        def finish_one(pred_np, runner):
+            outmask = self._finish_volume(pred_np, pre["boxes"], shape, runner.n_classes)
+            return self._from_lps(outmask, pre["curr_orient"], pre["lps_image"])
+
+        if self.fillmodelm is None:
+            return finish_one(pred, self.model)
+        jobs = list(zip(pred, (self.model, self.fillmodelm)))
+        if self._fused_finish_threads():
+            # The native core runs GIL-free with thread-local scratch, so the
+            # two independent passes overlap; the result is the same either way.
+            with ThreadPoolExecutor(max_workers=2) as ex:
+                res_l, res_r = ex.map(lambda job: finish_one(*job), jobs)
+        else:
+            res_l, res_r = (finish_one(*job) for job in jobs)
+        with self.timings.stage("fusion_postprocess"):
+            # Reference mask.py:228-232; the fusion's postprocessing runs
+            # whatever volume_postprocessing is, as in the reference.
+            fused = native.fused_finish(res_l, res_r)
+            if fused is not None:
+                return fused
+            spare_value = res_l.max() + 1
+            res_l[np.logical_and(res_l == 0, res_r > 0)] = spare_value
+            res_l[res_r == 0] = 0
+            return postprocess.postprocessing(
+                res_l, spare=[spare_value], disable_tqdm=self.tqdm_disable
+            )
 
     def apply_preprocessed(self, pre: dict) -> np.ndarray:
         """Phase 2 of :meth:`apply` on a :meth:`preprocess_image` result."""
         return self.finish_forward(pre, self.forward_preprocessed(pre))
 
     def apply(self, image: ImageLike) -> np.ndarray:
-        """Apply the model to a volumetric image; returns the uint8 label
-        volume in the input's own geometry and axis order."""
+        """Apply the model (or the fused model pair) to a volumetric image;
+        returns the uint8 label volume in the input's own geometry and axis
+        order. The fused pair shares one preprocessing pass."""
+        if self.fillmodelm is not None:
+            return self.apply_preprocessed(self.preprocess_image(image))
         inimg_raw, curr_orient, lps_image = self._to_lps(image)
         outmask = self._infer_volume(inimg_raw)
         return self._from_lps(outmask, curr_orient, lps_image)
+
+    def _fused_finish_threads(self) -> bool:
+        """Whether the fused mode's two per-model finishes run on two
+        threads: when the host has more than one core, unless
+        ``LUNGMASK_TPU_FUSED_THREADS`` is set (``0`` = sequential)."""
+        flag = os.environ.get("LUNGMASK_TPU_FUSED_THREADS")
+        if flag is not None:
+            return flag != "0"
+        return (os.cpu_count() or 1) > 1
+
+
+def apply(
+    image: ImageLike,
+    model: Optional[UNetRunner] = None,
+    force_cpu: bool = False,
+    batch_size: int = 20,
+    volume_postprocessing: bool = True,
+    tqdm_disable: bool = False,
+) -> np.ndarray:
+    """Deprecated functional API (reference mask.py:235-255)."""
+    warnings.warn(
+        "The function `apply` will be removed in a future version. Please use the LMInferer class!",
+        DeprecationWarning,
+    )
+    inferer = LMInferer(
+        force_cpu=force_cpu,
+        batch_size=batch_size,
+        volume_postprocessing=volume_postprocessing,
+        tqdm_disable=tqdm_disable,
+    )
+    if model is not None:
+        inferer.model = model
+    return inferer.apply(image)
+
+
+def apply_fused(
+    image: ImageLike,
+    basemodel: str = "LTRCLobes",
+    fillmodel: str = "R231",
+    force_cpu: bool = False,
+    batch_size: int = 20,
+    volume_postprocessing: bool = True,
+    tqdm_disable: bool = False,
+) -> np.ndarray:
+    """Deprecated functional API (reference mask.py:258-279)."""
+    warnings.warn(
+        "The function `apply_fused` will be removed in a future version. Please use the LMInferer class!",
+        DeprecationWarning,
+    )
+    inferer = LMInferer(
+        modelname=basemodel,
+        force_cpu=force_cpu,
+        fillmodel=fillmodel,
+        batch_size=batch_size,
+        volume_postprocessing=volume_postprocessing,
+        tqdm_disable=tqdm_disable,
+    )
+    return inferer.apply(image)

@@ -12,10 +12,15 @@ into a per-channel affine (``models/convert.py``).
   float32 on its output, which is then cast once to the compute dtype. A
   bf16 torch conv rounds its output to bf16 before the bias, where JAX keeps
   the float32 accumulator — bf16 parity is by tolerance, never bit for bit.
-* Down path: 2×2 average pooling (``F.avg_pool2d``) between levels.
-* Up path: bilinear ×2 with half-pixel centres (``F.interpolate``,
-  ``align_corners=False``), the 1×1 projection, the skip centre-cropped to
-  the upsampled size, concat ``[up, skip]``, conv block.
+* Down path: 2×2 average pooling between levels, K2
+  (``ops/kernels/stencil.avg_pool2``).
+* Up path: bilinear ×2 with half-pixel centres, K3
+  (``ops/kernels/stencil.bilinear_up2``), the 1×1 projection, the skip
+  centre-cropped to the upsampled size, concat ``[up, skip]``, conv block.
+  Both stencils run on the NHWC view (``permute(0, 2, 3, 1)``) of the
+  channels_last tensors, which is contiguous, so no copy is made; on a CUDA
+  tensor they launch the hand-written kernels, on a CPU tensor their plain
+  versions.
 * Head: the 1×1 classifier as a float32 matmul over channels (``_head``).
 
 ``float32`` runs with cuDNN's TF32 turned off for the call
@@ -30,6 +35,8 @@ from typing import Any, Dict, List
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from lungmask_tpu_torch.ops.kernels import stencil
 
 Params = Dict[str, Any]
 
@@ -93,7 +100,7 @@ class UpBlock(nn.Module):
         self.conv_block = ConvBlock(p["conv_block"], compute_dtype)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        up = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+        up = stencil.bilinear_up2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         up = (F.conv2d(up, self.wp).float() + self.bp).to(self.compute_dtype)
         skip = _center_crop(skip, up.shape[2], up.shape[3])
         x = torch.cat([up, skip], dim=1)
@@ -136,7 +143,7 @@ class UNet(nn.Module):
                 x = block(x)
                 if i != len(self.down) - 1:
                     skips.append(x)
-                    x = F.avg_pool2d(x, 2)
+                    x = stencil.avg_pool2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
             for i, block in enumerate(self.up):
                 x = block(x, skips[-i - 1])
             nhwc = x.permute(0, 2, 3, 1).float()

@@ -17,34 +17,27 @@ the source for the layout.
 
 Build and binding: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``lungmask_tpu_torch/_build/libbodymask.so`` on first use (rebuilt when the
-source is newer), a plain C launcher loaded with ctypes, launched on torch's
-current stream. :func:`bodymask_labels` takes the plain version
-(:func:`bodymask_labels_reference`) only for a tensor on the CPU; for a CUDA
-tensor it launches the kernel or raises.
+source is newer; ``ops/kernels/_nvcc.py``), a plain C launcher loaded with
+ctypes, launched on torch's current stream. :func:`bodymask_labels` takes
+the plain version (:func:`bodymask_labels_reference`) only for a tensor on
+the CPU; for a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 from typing import Optional, Tuple
 
 import torch
 
 from lungmask_tpu_torch.ops import cc, morphology
-from lungmask_tpu_torch.ops.native import BUILD_DIR, build_lock
+from lungmask_tpu_torch.ops.kernels import _nvcc
 
 BODY_THRESHOLD = -500  # HU (reference lungmask/utils.py:66)
 N = 128  # bodymask resolution (reference lungmask/utils.py:68)
 
-SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "csrc",
-    "bodymask.cu",
-)
-_OUT = os.path.join(BUILD_DIR, "libbodymask.so")
+SOURCE = os.path.join(_nvcc.CSRC, "bodymask.cu")
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -58,42 +51,18 @@ def bodymask_labels_reference(small: torch.Tensor) -> Tuple[torch.Tensor, torch.
     return cc.label(mask, connectivity=1), mask
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (
-        home and os.path.join(home, "bin", "nvcc"),
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); K1 cannot be built")
-
-
 def build() -> ctypes.CDLL:
     """Compile (when missing or older than its source) and load K1."""
     global _LIB
-    if _LIB is not None:
-        return _LIB
-    with build_lock(_OUT):
-        if not os.path.exists(_OUT) or os.path.getmtime(SOURCE) > os.path.getmtime(_OUT):
-            tmp = f"{_OUT}.{os.getpid()}.tmp"
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE,
-            ]
-            res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-            os.replace(tmp, _OUT)
-    lib = ctypes.CDLL(_OUT)
-    lib.lm_bodymask_labels.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.lm_bodymask_labels.restype = ctypes.c_int
-    _LIB = lib
-    return lib
+    if _LIB is None:
+        lib = _nvcc.build(SOURCE, "libbodymask")
+        lib.lm_bodymask_labels.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.lm_bodymask_labels.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
 
 
 def bodymask_labels(small: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -5,8 +5,9 @@ The port shares the JAX package's C++ host core: ``csrc/postproc.cpp`` and
 ``csrc/preproc.cpp`` at the repository root are compiled with g++ into
 ``lungmask_tpu_torch/_build/libpostproc.so`` on first use (a few seconds) and
 bound with ctypes. They provide union-find connected components, fused
-regionprops, hole filling, the one-call exact postprocessing, the mask
-paste-back, the bit unpack and the crop+resize+normalize resampler. Callers
+regionprops, hole filling, the one-call exact postprocessing, the fused
+two-model finish, the mask paste-back, the bit unpack and the
+crop+resize+normalize resampler. Callers
 fall back to the numpy/scipy implementations when no compiler is available;
 :func:`native_loaded` reports whether the core loaded.
 """
@@ -172,6 +173,12 @@ def get_lib() -> Optional[ctypes.CDLL]:
             u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             i32p, ctypes.c_int32, ctypes.c_int32, u8p,
         ]
+    if hasattr(lib, "lm_fused_finish"):
+        lib.lm_fused_finish.restype = ctypes.c_int32
+        lib.lm_fused_finish.argtypes = [
+            u8p, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int32, u8p,
+        ]
     if hasattr(lib, "lm_paste_masks"):
         lib.lm_paste_masks.restype = ctypes.c_int32
         lib.lm_paste_masks.argtypes = [
@@ -323,6 +330,36 @@ def postprocess(
         img.ctypes.data_as(u8p), nz, ny, nx,
         sp.ctypes.data_as(i32p), len(sp), int(skip_below),
         out.ctypes.data_as(u8p),
+    )
+    return out if rc == 0 else None
+
+
+def fused_finish(
+    res_l: np.ndarray, res_r: np.ndarray, skip_below: int = 3
+) -> Optional[np.ndarray]:
+    """One-call fused-path finish (reference mask.py:228-232: spare-value
+    FN-fill + FP-removal + spare-aware postprocessing). Returns None when the
+    native core is unavailable or the inputs need the Python path (fewer
+    than 2 slices, non-uint8 masks)."""
+    lib = get_lib()
+    if lib is None or not hasattr(lib, "lm_fused_finish"):
+        return None
+    if (
+        res_l.shape != res_r.shape
+        or res_l.ndim != 3
+        or res_l.shape[0] < 2
+        or res_l.dtype != np.uint8
+        or res_r.dtype != np.uint8
+    ):
+        return None
+    a = np.ascontiguousarray(res_l)
+    b = np.ascontiguousarray(res_r)
+    nz, ny, nx = a.shape
+    out = np.empty_like(a)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    rc = lib.lm_fused_finish(
+        a.ctypes.data_as(u8p), b.ctypes.data_as(u8p), nz, ny, nx,
+        int(skip_below), out.ctypes.data_as(u8p),
     )
     return out if rc == 0 else None
 

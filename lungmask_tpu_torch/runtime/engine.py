@@ -7,7 +7,8 @@ padding to bucketed chunk counts and its split dispatches exist only to bound
 the number of compiled XLA programs, and PyTorch runs eagerly, so neither is
 ported. Class maps are bit-packed on the device before the download (2 bits
 per pixel for ≤4 classes, 4 for ≤16) with the JAX engine's bit order, and
-unpacked on the host by the native core.
+unpacked on the host by the native core. The fused two-model mode runs both
+U-Nets chunk by chunk over one stack (:func:`volume_argmax_pair_packed`).
 """
 
 from __future__ import annotations
@@ -74,6 +75,25 @@ def pack_bits_for(n_classes: int, width: int) -> int:
     return 8
 
 
+def volume_argmax_pair_packed(
+    model_a: UNet, model_b: UNet, vol: torch.Tensor, chunk: int, bits_a: int, bits_b: int
+):
+    """Both U-Nets over the same (M, H, W) stack (``engine.volume_argmax_pair_packed``
+    of the JAX package): model A's chunk, then model B's, so peak activation
+    memory stays that of one model. Each class map is packed by its own
+    width (:func:`pack_bits_for`) → (M, H, W·bits_a/8), (M, H, W·bits_b/8)
+    uint8 on the stack's device."""
+    m, h, w = vol.shape
+    with torch.inference_mode():
+        out_a = torch.empty((m, h, w * bits_a // 8), dtype=torch.uint8, device=vol.device)
+        out_b = torch.empty((m, h, w * bits_b // 8), dtype=torch.uint8, device=vol.device)
+        for s in range(0, m, chunk):
+            x = vol[s : s + chunk].unsqueeze(-1)
+            out_a[s : s + chunk] = pack_bits(unet_argmax(model_a, x), bits_a)
+            out_b[s : s + chunk] = pack_bits(unet_argmax(model_b, x), bits_b)
+    return out_a, out_b
+
+
 def unpack_nibbles(packed: np.ndarray) -> np.ndarray:
     """(M, H, W/2) uint8 nibble pairs → (M, H, W) uint8 class map (host)."""
     from lungmask_tpu_torch.ops import native
@@ -133,3 +153,15 @@ class UNetRunner:
         bits = pack_bits_for(self.n_classes, slices.shape[2])
         packed = pack_bits(self.run(slices), bits).cpu().numpy()
         return unpack_bits_np(packed, bits)
+
+
+def run_pair_numpy(a: UNetRunner, b: UNetRunner, slices: torch.Tensor):
+    """Both runners over one stack (:func:`volume_argmax_pair_packed`, at
+    ``a``'s batch size on ``a``'s device) → two (N, H, W) uint8 host class
+    maps, each downloaded bit-packed and unpacked on the host."""
+    width = slices.shape[2]
+    bits_a, bits_b = pack_bits_for(a.n_classes, width), pack_bits_for(b.n_classes, width)
+    pa, pb = volume_argmax_pair_packed(
+        a.model, b.model, slices.to(a.device), a.batch_size, bits_a, bits_b
+    )
+    return unpack_bits_np(pa.cpu().numpy(), bits_a), unpack_bits_np(pb.cpu().numpy(), bits_b)

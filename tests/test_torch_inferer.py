@@ -122,7 +122,6 @@ def test_no_silent_cpu_fallback(weights):
 @pytest.mark.parametrize(
     "kwargs, item",
     [
-        ({"fillmodel": "R231"}, 4),
         ({"preprocessing": "device"}, 5),
         ({"postprocessing_mode": "device"}, 6),
         ({"mesh": object()}, 10),
