@@ -14,13 +14,21 @@ card, then drives two paths at the production width (U-Net wf=6) on a
   models from a temporary ``$LUNGMASK_TPU_CACHE``;
 * the main path — ``LMInferer(...).apply`` and the ``lungmask-torch INPUT
   OUTPUT`` CLI with their defaults (hybrid preprocessing, bf16 U-Net, exact
-  host postprocessing).
+  host postprocessing);
+* device postprocessing — ``LMInferer(postprocessing_mode="device")``,
+  single model and fused, its cleanup of one class map on the card held
+  bit for bit against the same cleanup on the CPU, and its masks compared
+  with the exact path's (``metrics.compare_masks``);
+* the cohort lane — ``run_cohort`` over four phantom NIfTI files, exact and
+  device mode, every mask equal to ``apply``'s;
+* the serve lane — ``make_server`` in this process, three NIfTI uploads from
+  two client threads, every response equal to ``apply``'s.
 
-Each path's apply calls run with every kernel's launch count set to 0 just
-before them and read just after.
+Each path's calls run with every kernel's launch count set to 0 just before
+them and read just after.
 
-Phases: device, build, kernel, unet, stencil, fused, inferer, cli; each
-prints its results on its own lines. The second-to-last line is a JSON
+Phases: device, build, kernel, unet, stencil, fused, inferer, cli, postdev,
+cohort, serve; each prints its results on its own lines. The second-to-last line is a JSON
 object describing the kernels; the last line is ``{"ok": true, "device":
 {...}}`` and is printed only when every phase passed. Exits non-zero,
 printing no result, when no CUDA device is available or any phase fails.
@@ -56,6 +64,8 @@ ODD_SHAPES = [(3, 33, 35, 4), (2, 17, 9, 12), (1, 3, 3, 5), (2, 8, 8, 3)]
 UNET_LOGIT_ATOL, UNET_LOGIT_RTOL = 1e-3, 1e-4  # GPU f32 (TF32 off) vs CPU f32
 BF16_MIN_AGREEMENT = 0.98  # GPU bf16 argmax vs GPU f32, a gross check
 LUNG_MIN_FRACTION = 0.95  # share of each phantom lung given its class
+COHORT_SLICES = (192, 160, 128, 96)  # the four cohort volumes: phantom[:n]
+SERVE_SLICES = (192, 128, 96)  # the three uploads
 
 
 def _times_ms(torch, fn, runs: int) -> list:
@@ -396,6 +406,7 @@ class Smoke:
             stem = os.path.splitext(os.path.basename(registry.MODEL_URLS[name][0]))[0]
             convert.save_npz(os.path.join(cache, stem + ".npz"), params)
         os.environ["LUNGMASK_TPU_CACHE"] = cache
+        self.state["cache"] = cache
         vol = self.state["phantom"]
         inferer = LMInferer(modelname="LTRCLobes", fillmodel="R231", tqdm_disable=True)
         self.check(inferer.device.type == "cuda" and inferer.fillmodelm.device == inferer.device,
@@ -422,6 +433,7 @@ class Smoke:
         print(f"[fused] launches in the 2 fused calls: {launches} | labels {labels} | "
               f"foreground share {float((m > 0).mean()):.4f} | shape {m.shape} {m.dtype}")
         self.check(np.array_equal(m, masks[1]), "the 2 fused masks differ")
+        self.state["fused_mask"] = m
         self.check(bool(m.any()), "the fused mask is empty")
         self.check(set(labels) <= set(range(6)), f"labels {labels}")
         want = {"bodymask_labels": 2, "avg_pool2": 96, "bilinear_up2": 96}
@@ -502,6 +514,23 @@ class Smoke:
         self.check(launches == want, f"launches {launches}, expected {want} (per call one K1 "
                                      "and 6 chunks x 4 of K2 and K3)")
 
+        # Slices under 128² take the strict host preprocessing; the U-Net
+        # still runs on the card.
+        from lungmask_tpu_torch.models.synthetic import lung_phantom
+
+        small = lung_phantom(40, size=96)
+        _reset_launches()
+        pre = inferer.preprocess_image(small)
+        small_mask = inferer.apply_preprocessed(pre)
+        small_launches = _launches()
+        lungs = sorted(int(v) for v in np.unique(small_mask))
+        print(f"[inferer] 40x96² volume (host preprocessing): stack on {pre['normalized'].device}, "
+              f"launches {small_launches}, labels {lungs}, shape {small_mask.shape}")
+        self.check(pre["normalized"].is_cuda, "the small volume's stack is not on the card")
+        self.check(small_launches == {"bodymask_labels": 0, "avg_pool2": 8, "bilinear_up2": 8},
+                   f"small-volume launches {small_launches}")
+        self.check(small_mask.shape == small.shape and lungs == [0, 1, 2], f"labels {lungs}")
+
     def cli(self):
         import numpy as np
 
@@ -527,6 +556,199 @@ class Smoke:
         print(f"[cli] mask read back equals LMInferer.apply voxel for voxel: {same}")
         self.check(same, "CLI mask differs from LMInferer.apply")
 
+    def postdev(self):
+        import numpy as np
+
+        torch = self.torch
+        from lungmask_tpu_torch import LMInferer
+        from lungmask_tpu_torch.metrics import compare_masks
+        from lungmask_tpu_torch.transforms.postprocess_device import postprocess_device
+
+        vol = self.state["phantom"]
+        exact_inf = self.state["inferer"]
+        inferer = LMInferer(modelpath=self.state["weights"], tqdm_disable=True,
+                            postprocessing_mode="device")
+        self.check(inferer.device.type == "cuda", f"device-mode inferer on {inferer.device}")
+        masks = []
+        _reset_launches()
+        for call in range(2):
+            inferer.timings.reset()
+            t0 = time.perf_counter()
+            masks.append(inferer.apply(vol))
+            wall = time.perf_counter() - t0
+            st = inferer.timings.summary()
+            stages = " ".join(f"{k} {st.get(k, 0.0):.4f}"
+                              for k in ("preprocess", "unet", "postprocess", "paste_back"))
+            print(f"[postdev] device-mode apply {call + 1}: {wall:.4f} s | stage s: {stages}")
+        launches = _launches()
+        exact_inf.timings.reset()
+        t0 = time.perf_counter()
+        exact = exact_inf.apply(vol)
+        wall = time.perf_counter() - t0
+        print(f"[postdev] exact-mode apply: {wall:.4f} s | postprocess "
+              f"{exact_inf.timings.summary()['postprocess']:.4f} s")
+        m = masks[0]
+        labels = sorted(int(v) for v in np.unique(m))
+        self.check(np.array_equal(m, masks[1]), "the 2 device-mode masks differ")
+        self.check(m.shape == vol.shape and m.dtype == np.uint8, f"mask {m.shape} {m.dtype}")
+        self.check(set(labels) <= {0, 1, 2} and m.any(), f"device-mode labels {labels}")
+        self.check(all(v > 0 for v in launches.values()), f"launches {launches}")
+        cmp = compare_masks(m, exact)
+        print(f"[postdev] launches in the 2 device-mode calls: {launches} | labels {labels} | "
+              f"device vs exact: voxel agreement {cmp.voxel_accuracy:.6f}, macro Dice "
+              f"{cmp.macro_dice:.6f} (divergence contract, not gated)")
+
+        # One class map made on the card, cleaned on the card and on the CPU.
+        pred = inferer.forward_preprocessed(inferer.preprocess_image(vol))
+        self.check(pred.is_cuda, f"the device-mode class map lies on {pred.device}")
+        gpu_stats, cpu_stats = {}, {}
+        postprocess_device(pred, 3)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu = postprocess_device(pred, 3, gpu_stats)
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        self.check(gpu.is_cuda, f"the device cleanup ran on {gpu.device}")
+        t0 = time.perf_counter()
+        cpu = postprocess_device(pred.cpu(), 3, cpu_stats)
+        t_cpu = time.perf_counter() - t0
+        same = torch.equal(gpu.cpu(), cpu)
+        print(f"[postdev] cleanup of one {tuple(pred.shape)} class map: GPU {t_gpu:.4f} s "
+              f"(rounds: label {gpu_stats['label_rounds']}, fill {gpu_stats['fill_rounds']}) | "
+              f"CPU {t_cpu:.4f} s (label {cpu_stats['label_rounds']}, fill "
+              f"{cpu_stats['fill_rounds']}) | bit-equal {same}")
+        self.check(same, "the GPU cleanup differs from the CPU cleanup of the same map")
+        self.state["dev_inferer"] = inferer
+
+        fused = LMInferer(modelname="LTRCLobes", fillmodel="R231", tqdm_disable=True,
+                          postprocessing_mode="device")
+        self.check(not fused._fused_finish_threads(), "device-mode fused finishes on 2 threads")
+        fmasks = []
+        for call in range(2):
+            fused.timings.reset()
+            t0 = time.perf_counter()
+            fmasks.append(fused.apply(vol))
+            wall = time.perf_counter() - t0
+            st = fused.timings.summary()
+            stages = " ".join(f"{k} {st.get(k, 0.0):.4f}" for k in (
+                "preprocess", "unet", "postprocess", "paste_back", "fusion_postprocess"))
+            print(f"[postdev] fused device-mode apply {call + 1}: {wall:.4f} s | stage s: {stages}")
+        f = fmasks[0]
+        self.check(np.array_equal(f, fmasks[1]), "the 2 fused device-mode masks differ")
+        self.check(set(int(v) for v in np.unique(f)) <= set(range(6)), "fused labels")
+        fcmp = compare_masks(f, self.state["fused_mask"], n_classes=6)
+        print(f"[postdev] fused device vs exact: voxel agreement {fcmp.voxel_accuracy:.6f}, "
+              f"macro Dice {fcmp.macro_dice:.6f} | labels "
+              f"{sorted(int(v) for v in np.unique(f))}")
+
+    def _write_volumes(self, counts, stem):
+        from lungmask_tpu_torch.io import image, loader
+
+        paths = []
+        for i, n in enumerate(counts):
+            path = os.path.join(self.state["tmp"], f"{stem}{i}.nii")
+            img = image.MedicalImage(self.state["phantom"][:n], spacing=(0.7, 0.7, 2.5))
+            loader.write_image(img, path)
+            paths.append(path)
+        return paths
+
+    def cohort(self):
+        import numpy as np
+
+        from lungmask_tpu_torch.io import loader
+        from lungmask_tpu_torch.runtime.cohort import run_cohort
+
+        paths = self._write_volumes(COHORT_SLICES, "cohort")
+        chunks = sum(-(-n // CHUNK) for n in COHORT_SLICES)
+        want = {"bodymask_labels": len(paths), "avg_pool2": 4 * chunks, "bilinear_up2": 4 * chunks}
+        for mode, inferer in (("exact", self.state["inferer"]),
+                              ("device", self.state["dev_inferer"])):
+            out = os.path.join(self.state["tmp"], f"cohort_{mode}")
+            os.makedirs(out)
+            _reset_launches()
+            stats = run_cohort(paths, inferer, output_dir=out)
+            launches = _launches()
+            errors = [r.error for r in stats.results if r.error]
+            print(f"[cohort] {mode}: {len(paths)} volumes ({'+'.join(map(str, COHORT_SLICES))} "
+                  f"slices of 512²) in {stats.wall_seconds:.4f} s = "
+                  f"{stats.volumes_per_hour:.1f} volumes/h | stage s {stats.stage_seconds} | "
+                  f"launches {launches}")
+            self.check(not errors and len(stats.results) == len(paths), f"errors {errors}")
+            self.check(launches == want, f"launches {launches}, expected {want}")
+            for r, path in zip(stats.results, paths):
+                got = loader.load_input_image(os.path.join(out, f"{r.name}_mask.nii.gz")).array
+                ref = inferer.apply(loader.load_input_image(path))
+                self.check(np.array_equal(got, ref), f"{mode} cohort mask {r.name} differs "
+                                                     "from apply")
+            print(f"[cohort] {mode}: every written mask equals apply's")
+
+    def serve(self):
+        import threading
+        import urllib.request
+
+        import numpy as np
+
+        from lungmask_tpu_torch.io import loader
+        from lungmask_tpu_torch.runtime.serve import make_server
+
+        inferer = self.state["inferer"]
+        paths = self._write_volumes(SERVE_SLICES, "serve")
+        uploads = []
+        for path in paths:
+            with open(path, "rb") as fh:
+                uploads.append(fh.read())
+        httpd, service = make_server(inferer, port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            print(f"[serve] /healthz {health}")
+            self.check(health["backend"] == "cuda", f"backend {health['backend']}")
+            results = [None] * len(uploads)
+            todo = list(range(len(uploads)))
+            lock = threading.Lock()
+
+            def client():
+                while True:
+                    with lock:
+                        if not todo:
+                            return
+                        i = todo.pop(0)
+                    req = urllib.request.Request(
+                        base + "/v1/segment?name=v.nii&out=.nii.gz", data=uploads[i],
+                        method="POST",
+                    )
+                    with urllib.request.urlopen(req, timeout=300) as r:
+                        results[i] = (r.status, r.read())
+
+            _reset_launches()
+            t0 = time.perf_counter()
+            clients = [threading.Thread(target=client) for _ in range(2)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join()
+        metrics = service.metrics()
+        print(f"[serve] {len(uploads)} uploads from 2 clients in {wall:.4f} s = "
+              f"{3600 * len(uploads) / wall:.1f} volumes/h | launches {launches} | service "
+              f"s: " + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()
+                                if k.endswith("seconds")))
+        self.check(all(r is not None and r[0] == 200 for r in results), "a request failed")
+        self.check(all(v > 0 for v in launches.values()), f"launches {launches}")
+        for (status, body), path in zip(results, paths):
+            got = loader.load_input_bytes(bytearray(body), "m.nii.gz").array
+            ref = inferer.apply(loader.load_input_image(path))
+            self.check(np.array_equal(got, ref), f"the response for {path} differs from apply")
+        print("[serve] every response equals apply's")
+
 
 def main() -> int:
     import torch
@@ -546,8 +768,12 @@ def main() -> int:
             "fused": {"phantom": "kernel"},
             "inferer": {"phantom": "kernel", "params": "unet"},
             "cli": {"phantom": "kernel", "params": "unet", "inferer": "inferer"},
+            "postdev": {"phantom": "kernel", "inferer": "inferer", "fused_mask": "fused"},
+            "cohort": {"phantom": "kernel", "inferer": "inferer", "dev_inferer": "postdev"},
+            "serve": {"phantom": "kernel", "inferer": "inferer"},
         }
-        for name in ("device", "build", "kernel", "unet", "stencil", "fused", "inferer", "cli"):
+        for name in ("device", "build", "kernel", "unet", "stencil", "fused", "inferer", "cli",
+                     "postdev", "cohort", "serve"):
             missing = [(key, maker) for key, maker in needs.get(name, {}).items()
                        if key not in smoke.state]
             if missing:

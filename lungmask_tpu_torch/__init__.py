@@ -5,8 +5,10 @@ module paths and public names, imports ``torch`` and never ``jax`` or
 ``lungmask_tpu``, and runs its device work on an NVIDIA GPU (Hopper): plain
 tensor code in PyTorch, the TPU's Pallas kernels rewritten by hand in CUDA
 C++ (``csrc/``). Public surface: ``LMInferer`` (+ the deprecated ``apply``
-and ``apply_fused``) and the ``lungmask-torch INPUT OUTPUT`` CLI
-(``python -m lungmask_tpu_torch``).
+and ``apply_fused``), the ``lungmask-torch`` CLI (``python -m
+lungmask_tpu_torch``; one volume, ``--cohort``, ``--serve``, ``--warmup``),
+``runtime.cohort.run_cohort``, ``runtime.serve.make_server`` and
+``metrics.compare_masks``.
 """
 
 __version__ = "0.1.0"

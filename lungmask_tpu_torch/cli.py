@@ -5,9 +5,11 @@ The reference's flags (lungmask/__main__.py:20-144): positional input and
 output, ``--modelname`` (``LTRCLobes_R231`` is the fused two-model mode,
 both models from the registry), ``--modelpath``, ``--cpu`` (forces batch
 size 1), ``--nopostprocess``, ``--batchsize``, ``--noprogress``,
-``--version``, ``--removemetadata``. The port reads and writes NIfTI. Not
-ported yet: ``--cohort``, ``--serve``, ``--warmup``, ``--noHU`` and
-``--postprocessing`` (ROADMAP.md queue 1, item 7).
+``--version``, ``--removemetadata``. The JAX package's extensions:
+``--postprocessing {exact,device}``, ``--cohort`` (a directory of volumes
+through the overlapped cohort pipeline), ``--serve [HOST:]PORT`` (the HTTP
+lane) and ``--warmup [N_SLICES]``. The port reads and writes NIfTI; DICOM,
+the other formats and ``--noHU`` are ROADMAP.md queue 1, item 2.
 """
 
 from __future__ import annotations
@@ -34,12 +36,25 @@ def main(argv=None) -> None:
         prog="lungmask-torch", formatter_class=argparse.ArgumentDefaultsHelpFormatter
     )
     parser.add_argument(
-        "input", metavar="input", type=path,
-        help="CT volume to segment (.nii or .nii.gz)",
+        "input", metavar="input", type=path, nargs="?", default=None,
+        help="CT volume to segment (.nii or .nii.gz); with --cohort a directory of them",
     )
     parser.add_argument(
-        "output", metavar="output", type=str,
-        help="where to write the resulting label volume (.nii or .nii.gz)",
+        "output", metavar="output", type=str, nargs="?", default=None,
+        help="where to write the resulting label volume (.nii or .nii.gz); "
+        "with --cohort a directory",
+    )
+    parser.add_argument(
+        "--warmup",
+        nargs="?",
+        type=int,
+        const=192,
+        default=None,
+        metavar="N_SLICES",
+        help="build the CUDA kernels and the host core, then run the configured "
+        "model(s) twice over an N_SLICES-slice 512² phantom and log the cold and "
+        "warm seconds. No input/output needed; honors --modelname/--modelpath/"
+        "--batchsize/--cpu/--postprocessing.",
     )
     parser.add_argument(
         "--modelname",
@@ -85,6 +100,32 @@ def main(argv=None) -> None:
         help="strip patient/study tags from the output instead of carrying "
         "them over; only meaningful for metadata-capable formats like DICOM",
     )
+    parser.add_argument(
+        "--postprocessing",
+        choices=["exact", "device"],
+        default="exact",
+        help="volume cleanup: 'exact' replicates the reference's label semantics "
+        "bit for bit on the host C++ core; 'device' keeps the cleanup on the GPU "
+        "(largest component + hole fill, no small-region merge; see "
+        "transforms/postprocess_device.py)",
+    )
+    parser.add_argument(
+        "--cohort",
+        action="store_true",
+        help="batch mode: INPUT is a directory of volumes; masks are streamed to "
+        "OUTPUT/<name>_mask.nii.gz through the overlapped decode/compute/"
+        "postprocess pipeline (lungmask_tpu_torch.runtime.cohort)",
+    )
+    parser.add_argument(
+        "--serve",
+        metavar="[HOST:]PORT",
+        default=None,
+        help="start an HTTP segmentation endpoint instead of processing one volume "
+        "(POST /v1/segment, GET /healthz|/v1/models|/metrics; "
+        "lungmask_tpu_torch.runtime.serve). No input/output needed; honors "
+        "--modelname/--modelpath/--batchsize/--cpu/--nopostprocess/--postprocessing. "
+        "Runs --warmup first if given.",
+    )
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     if args.modelname == "LTRCLobes_R231" and args.modelpath is not None:
         parser.error(
@@ -93,6 +134,27 @@ def main(argv=None) -> None:
         )
 
     batchsize = 1 if args.cpu else args.batchsize
+    inferer = None
+    if args.warmup is not None:
+        inferer = _warmup(args, batchsize)
+        if args.serve is None:
+            return
+    if args.serve is not None:
+        from lungmask_tpu_torch.runtime.serve import serve_forever
+
+        host, _, port_s = args.serve.rpartition(":")
+        try:
+            port = int(port_s)
+        except ValueError:
+            parser.error(f"--serve expects [HOST:]PORT, got {args.serve!r}")
+        serve_forever(inferer or _build_inferer(args, batchsize), host or "127.0.0.1", port)
+        return
+    if args.input is None or args.output is None:
+        parser.error("input and output are required (or pass --warmup/--serve)")
+    if args.cohort:
+        _cohort(args, batchsize)
+        return
+
     keepmetadata = not args.removemetadata
 
     logger.info("Load model")
@@ -126,10 +188,85 @@ def _build_inferer(args, batchsize: int) -> LMInferer:
         batch_size=batchsize,
         volume_postprocessing=not args.nopostprocess,
         tqdm_disable=args.noprogress,
+        postprocessing_mode=args.postprocessing,
     )
     if args.modelname == "LTRCLobes_R231":
         return LMInferer(modelname="LTRCLobes", fillmodel="R231", **common)
     return LMInferer(modelname=args.modelname, modelpath=args.modelpath, **common)
+
+
+def _cohort(args, batchsize) -> None:
+    """Batch mode: each NIfTI file (and each subdirectory, which fails its
+    volume until DICOM is ported) of INPUT streams through
+    ``runtime.cohort``; masks land in OUTPUT. Failures are per volume
+    (logged, recorded), not fatal."""
+    from lungmask_tpu_torch.runtime.cohort import run_cohort
+
+    if not os.path.isdir(args.input):
+        sys.exit(f"--cohort input must be a directory: {args.input}")
+    sources = []
+    for entry in sorted(os.listdir(args.input)):
+        p = os.path.join(args.input, entry)
+        if os.path.isdir(p) or entry.lower().endswith((".nii", ".nii.gz")):
+            sources.append(p)
+    if not sources:
+        sys.exit(f"No volumes found in {args.input}")
+    os.makedirs(args.output, exist_ok=True)
+
+    logger.info(f"Cohort: {len(sources)} volumes -> {args.output}")
+    inferer = _build_inferer(args, batchsize)
+    stats = run_cohort(sources, inferer, output_dir=args.output)
+    failed = [r for r in stats.results if r.error]
+    for r in failed:
+        logger.error(f"{r.name}: {r.error}")
+    logger.info(
+        f"Cohort done: {len(stats.results) - len(failed)}/{len(stats.results)} "
+        f"volumes in {stats.wall_seconds:.1f}s ({stats.volumes_per_hour:.0f} volumes/hour)"
+    )
+    if failed and len(failed) == len(stats.results):
+        sys.exit("every volume failed")
+
+
+def _warmup(args, batchsize) -> LMInferer:
+    """Warm start: the port has no compile cache, so warming builds the
+    CUDA kernel libraries (on a CUDA inferer) and the host core, then runs
+    the full pipeline twice on a synthetic lung phantom (cuDNN picks its
+    algorithms on the first pass) and logs both times. Returns the warm
+    inferer (``--serve`` goes on with it)."""
+    import time
+
+    import numpy as np
+
+    from lungmask_tpu_torch.ops import native
+
+    n = int(args.warmup)
+    inferer = _build_inferer(args, batchsize)
+    t0 = time.perf_counter()
+    if inferer.device.type == "cuda":
+        from lungmask_tpu_torch.ops.kernels import bodymask, stencil
+
+        bodymask.build()
+        stencil.build()
+    native.native_loaded()
+    built = time.perf_counter() - t0
+    logger.info(f"Warmup: kernels and host core ready in {built:.1f}s; {n}-slice phantom")
+    zz, yy, xx = np.ogrid[0:n, 0:512, 0:512]
+    vol = np.full((n, 512, 512), -1000, dtype=np.int16)
+    body2d = ((yy[0] - 256) / 200.0) ** 2 + ((xx[0] - 256) / 230.0) ** 2 < 1
+    vol[:, body2d] = 40
+    for cx in (160, 352):
+        lung = ((zz - n / 2) / (n * 0.45)) ** 2 + ((yy - 256) / 140.0) ** 2 + (
+            (xx - cx) / 90.0
+        ) ** 2 < 1
+        vol[lung] = -800
+    t0 = time.perf_counter()
+    inferer.apply(vol)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inferer.apply(vol)
+    warm = time.perf_counter() - t0
+    logger.info(f"Warmup complete: first pass {cold:.1f}s, warm pass {warm:.1f}s")
+    return inferer
 
 
 if __name__ == "__main__":

@@ -5,15 +5,19 @@ Same constructor and ``apply()`` contract as the JAX package: a
 geometry-carrying :class:`MedicalImage` is processed in LPS orientation and
 returned in its own; a numpy ``(z, y, x)`` volume passes through. The main
 path is hybrid preprocessing (``transforms/preprocess.py``, the bodymask
-kernel K1 on the device), the U-Net (``runtime/engine.py``; its pooling and
+kernel K1 on the device; slices under 128² and ``preprocessing="host"`` take
+the strict host pipeline), the U-Net (``runtime/engine.py``; its pooling and
 upsampling are the kernels K2 and K3), exact host postprocessing
 (``transforms/postprocess.py`` → the native core) and the native
-paste-back.
+paste-back. With ``postprocessing_mode="device"`` the class map stays on the
+device and is cleaned there (``transforms/postprocess_device.py``); only the
+crumb-packed result comes down.
 
 The fused two-model mode (``fillmodel=``, the CLI's ``LTRCLobes_R231``)
 preprocesses once, runs both U-Nets chunk by chunk over the one stack,
 finishes each model's mask on its own (postprocess + paste + reorient, on
-two threads where the host has more than one core), and fuses the two with
+two threads where the host has more than one core and the postprocessing
+runs on the host), and fuses the two with
 the reference's FN-fill / FP-removal rule (``native.fused_finish``;
 reference mask.py:223-232).
 
@@ -37,8 +41,17 @@ from lungmask_tpu_torch.io.image import MedicalImage, reorient
 from lungmask_tpu_torch.logger import logger
 from lungmask_tpu_torch.models.registry import MODEL_URLS, get_model
 from lungmask_tpu_torch.ops import native, resample
-from lungmask_tpu_torch.runtime.engine import UNetRunner, run_pair_numpy
+from lungmask_tpu_torch.runtime.engine import (
+    UNetRunner,
+    run_pair,
+    run_pair_numpy,
+    unpack_crumbs,
+)
 from lungmask_tpu_torch.transforms import postprocess, preprocess
+from lungmask_tpu_torch.transforms.postprocess_device import (
+    postprocess_device,
+    postprocess_device_packed2,
+)
 from lungmask_tpu_torch.utils.profiling import StageTimer
 
 ImageLike = Union[MedicalImage, np.ndarray]
@@ -102,11 +115,16 @@ class LMInferer:
             batch_size: slices per forward (default 32).
             volume_postprocessing: connected-component cleanup toggle.
             tqdm_disable: disable progress output (tqdm is optional).
-            preprocessing: None or 'hybrid'; the other modes are ROADMAP.md
-                queue 1, item 5.
+            preprocessing: None or 'hybrid' (the default: device bodymask
+                boxes, float64 host resample) or 'host' (the reference's
+                per-slice scipy chain; bit-equal to 'hybrid'). 'device' and
+                'sharded' are not ported yet (ROADMAP.md queue 1, item 5).
             precision: 'bfloat16' (default) or 'float32' (cuDNN TF32 off).
             mesh: multi-device sharding — not ported yet (item 10).
-            postprocessing_mode: 'exact'; 'device' is item 6.
+            postprocessing_mode: 'exact' (the host C++ core, bit-faithful to
+                the reference) or 'device' (largest component + hole fill on
+                the inferer's device, without the small-region merge; see
+                ``transforms/postprocess_device.py``).
             device: 'cuda', 'cuda:N' or 'cpu'; None means CUDA.
         """
         if modelname not in MODEL_URLS:
@@ -117,12 +135,16 @@ class LMInferer:
             raise ValueError(
                 f"Modelname not found. Please choose from: {list(MODEL_URLS)}"
             )
-        if preprocessing not in (None, "hybrid"):
+        if preprocessing in ("device", "sharded"):
             raise _not_ported(f"preprocessing={preprocessing!r}", 5)
+        if preprocessing not in (None, "hybrid", "host"):
+            raise ValueError(f"unknown preprocessing {preprocessing!r}")
         if mesh is not None:
             raise _not_ported("multi-device sharding (mesh=)", 10)
-        if postprocessing_mode != "exact":
-            raise _not_ported(f"postprocessing_mode={postprocessing_mode!r}", 6)
+        if postprocessing_mode not in ("exact", "device"):
+            raise ValueError(
+                f"postprocessing_mode must be 'exact' or 'device', got {postprocessing_mode!r}"
+            )
         if precision not in ("bfloat16", "float32"):
             raise ValueError(f"precision must be 'bfloat16' or 'float32', got {precision!r}")
 
@@ -137,6 +159,8 @@ class LMInferer:
         self.batch_size = batch_size
         self.volume_postprocessing = volume_postprocessing
         self.tqdm_disable = tqdm_disable
+        self.preprocessing = preprocessing or "hybrid"
+        self.postprocessing_mode = postprocessing_mode
         self.timings = StageTimer()
         logger.info(f"lungmask_tpu_torch running on {self.device}")
 
@@ -157,7 +181,11 @@ class LMInferer:
 
     def _preprocess(self, volume: np.ndarray):
         """→ (normalized device slices (N, 256, 256), boxes (N, 4))."""
-        return preprocess.preprocess_hybrid(
+        if self.preprocessing == "host":
+            fn = preprocess.preprocess_host
+        else:
+            fn = preprocess.preprocess_hybrid
+        return fn(
             volume,
             resolution=(256, 256),
             compute_dtype=self._compute_dtype,
@@ -215,15 +243,46 @@ class LMInferer:
                 normalized, boxes = self._preprocess(inimg_raw)
             bar.update(1)
             with self.timings.stage("unet"):
-                pred = self.model.run_numpy(normalized)
+                pred = self._forward_model(self.model, normalized)
             bar.update(1)
             return self._finish_volume(
                 pred, boxes, inimg_raw.shape[1:], self.model.n_classes, bar=bar
             )
 
+    @property
+    def _device_post(self) -> bool:
+        return self.volume_postprocessing and self.postprocessing_mode == "device"
+
+    def _forward_model(self, model: UNetRunner, normalized):
+        """The U-Net forward. With device postprocessing the class map stays
+        on the device for it; otherwise it is downloaded bit-packed."""
+        if self._device_post:
+            return self._synced(model.run(normalized))
+        return model.run_numpy(normalized)
+
+    def _synced(self, out):
+        """Wait for the device work queued so far: a stage that leaves its
+        result on the device must still end when its work does, or its
+        seconds land in the next stage."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return out
+
+    def _device_postprocess(self, pred, n_classes: int) -> np.ndarray:
+        """Device-mode cleanup on the inferer's device (a host map is
+        uploaded first); the result comes down crumb-packed where it can
+        (≤ 4 classes, W % 4 == 0), a quarter of the dense bytes."""
+        pred = torch.as_tensor(pred).to(self.device)
+        if n_classes <= 4 and pred.shape[2] % 4 == 0:
+            return unpack_crumbs(postprocess_device_packed2(pred, n_classes).cpu().numpy())
+        return postprocess_device(pred, n_classes).cpu().numpy()
+
     def _finish_volume(self, pred_np, boxes, slice_shape, n_classes, bar=None) -> np.ndarray:
-        """Host finishing stages: exact postprocess + paste-back."""
-        if self.volume_postprocessing:
+        """Finishing stages: postprocess (per mode) + host paste-back."""
+        if self._device_post:
+            with self.timings.stage("postprocess"):
+                outmask = self._device_postprocess(pred_np, n_classes)
+        elif self.volume_postprocessing:
             with self.timings.stage("postprocess"):
                 outmask = postprocess.postprocessing(pred_np, disable_tqdm=self.tqdm_disable)
         else:
@@ -253,11 +312,14 @@ class LMInferer:
         }
 
     def forward_preprocessed(self, pre: dict):
-        """Phase 2a: the U-Net forward; returns the host class map, or the
-        pair of maps (base, fill) in the fused mode."""
+        """Phase 2a: the U-Net forward; returns the class map, or the pair of
+        maps (base, fill) in the fused mode — on the host, or on the device
+        with device postprocessing."""
         with self.timings.stage("unet"):
             if self.fillmodelm is None:
-                return self.model.run_numpy(pre["normalized"])
+                return self._forward_model(self.model, pre["normalized"])
+            if self._device_post:
+                return self._synced(run_pair(self.model, self.fillmodelm, pre["normalized"]))
             return run_pair_numpy(self.model, self.fillmodelm, pre["normalized"])
 
     def finish_forward(self, pre: dict, pred) -> np.ndarray:
@@ -308,12 +370,14 @@ class LMInferer:
 
     def _fused_finish_threads(self) -> bool:
         """Whether the fused mode's two per-model finishes run on two
-        threads: when the host has more than one core, unless
-        ``LUNGMASK_TPU_FUSED_THREADS`` is set (``0`` = sequential)."""
+        threads: when the host has more than one core and the postprocessing
+        runs on the host (two device cleanups would only queue on the one
+        device), unless ``LUNGMASK_TPU_FUSED_THREADS`` is set (``0`` =
+        sequential)."""
         flag = os.environ.get("LUNGMASK_TPU_FUSED_THREADS")
         if flag is not None:
             return flag != "0"
-        return (os.cpu_count() or 1) > 1
+        return (os.cpu_count() or 1) > 1 and not self._device_post
 
 
 def apply(

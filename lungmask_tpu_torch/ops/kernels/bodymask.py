@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from lungmask_tpu_torch.ops import cc, morphology
-from lungmask_tpu_torch.ops.kernels import _nvcc
+from lungmask_tpu_torch.ops.kernels import _nvcc, count_launch
 
 BODY_THRESHOLD = -500  # HU (reference lungmask/utils.py:66)
 N = 128  # bodymask resolution (reference lungmask/utils.py:68)
@@ -93,7 +93,7 @@ def bodymask_labels(small: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         )
         if rc != 0:
             raise RuntimeError(f"bodymask kernel launch failed: cudaError {rc}")
-        bodymask_labels.launches += 1
+        count_launch(bodymask_labels)
     return labels, mask.bool()
 
 

@@ -155,6 +155,15 @@ class UNetRunner:
         return unpack_bits_np(packed, bits)
 
 
+def run_pair(a: UNetRunner, b: UNetRunner, slices: torch.Tensor):
+    """Both runners over one stack (:func:`volume_argmax_pair_packed`, at
+    ``a``'s batch size) → two dense (N, H, W) uint8 class maps left on
+    ``a``'s device, for device-mode postprocessing."""
+    return volume_argmax_pair_packed(
+        a.model, b.model, slices.to(a.device), a.batch_size, 8, 8
+    )
+
+
 def run_pair_numpy(a: UNetRunner, b: UNetRunner, slices: torch.Tensor):
     """Both runners over one stack (:func:`volume_argmax_pair_packed`, at
     ``a``'s batch size on ``a``'s device) → two (N, H, W) uint8 host class

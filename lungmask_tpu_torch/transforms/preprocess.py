@@ -10,8 +10,9 @@ crop + resize + normalize (counterpart of the hybrid half of
    normalize (native C++ core, scipy fallback), then one upload of the 256²
    stack, cast to the compute dtype on the device.
 
-Slices smaller than 128² need the strict host pipeline, which is ROADMAP.md
-queue 1, item 3; they raise ``NotImplementedError`` here.
+Slices smaller than 128² take the strict host pipeline
+(``transforms/host_pipeline.py``) instead, as the JAX package's do; its
+stack is cast and uploaded the same way.
 """
 
 from __future__ import annotations
@@ -83,10 +84,7 @@ def _box_from_mask(shape: Tuple[int, int], mask128: torch.Tensor) -> torch.Tenso
     """
     h, w = shape
     if h < 128 or w < 128:
-        raise NotImplementedError(
-            f"slices of {h}x{w} (< 128²) need the strict host pipeline, which "
-            "is not ported yet (ROADMAP.md queue 1, item 3)"
-        )
+        raise ValueError(f"slices of {h}x{w} (< 128²) take the strict host pipeline")
     labels = cc.label(mask128)  # 8-connectivity at 128²
     box128 = cc.first_component_bbox(labels)
     ridx = _upzoom_box_tables(128, h, mask128.device)
@@ -169,11 +167,35 @@ def preprocess_hybrid(
             ``compute_dtype`` (the float32 → bf16 cast rounds to nearest
             even, as the JAX host cast does).
         boxes: (N, 4) int32 numpy crop boxes.
+
+    Slices smaller than 128² go through :func:`preprocess_host` (the JAX
+    package's fallback, its ``preprocess.py:344-354``): bit for bit the
+    same float64 arithmetic, with the boxes of the host bodymask.
     """
     n, h, w = volume.shape
+    if h < 128 or w < 128:
+        return preprocess_host(volume, resolution, compute_dtype, device)
     device = torch.device(device)
     packed = torch.from_numpy(pack_bodymask_bits(volume)).to(device)
     boxes = _boxes_from_packed(packed, (h, w)).cpu().numpy()
     normalized = crop_resize_normalize_host(volume, boxes, resolution)
     out = torch.from_numpy(normalized).to(device).to(compute_dtype)
     return out, boxes
+
+
+def preprocess_host(
+    volume: np.ndarray,
+    resolution: Tuple[int, int] = (256, 256),
+    compute_dtype: torch.dtype = torch.float32,
+    device="cpu",
+) -> Tuple[torch.Tensor, np.ndarray]:
+    """Strict host preprocessing (``preprocessing="host"``): the reference's
+    per-slice scipy chain (:mod:`host_pipeline`), normalized in float64,
+    rounded to float32 on the host, then uploaded to ``device`` and cast to
+    ``compute_dtype`` there. Same returns as :func:`preprocess_hybrid`."""
+    from lungmask_tpu_torch.transforms import host_pipeline
+
+    slices, boxes = host_pipeline.preprocess(volume, resolution=resolution)
+    normalized = host_pipeline.normalize_hu(slices).astype(np.float32)
+    out = torch.from_numpy(normalized).to(torch.device(device)).to(compute_dtype)
+    return out, np.asarray(boxes)

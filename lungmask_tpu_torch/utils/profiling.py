@@ -3,7 +3,9 @@
 :class:`StageTimer` accumulates seconds per pipeline stage across volumes and
 is exposed as ``LMInferer.timings``. A stage that launches device work must
 end in a synchronisation for its time to mean anything; the inferer's stages
-all end in a host copy, which synchronises.
+all end in a host copy, which synchronises, or (the U-Net stage of device
+postprocessing, whose class map stays on the device) in an explicit
+``torch.cuda.synchronize``.
 """
 
 from __future__ import annotations

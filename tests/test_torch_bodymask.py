@@ -56,6 +56,39 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert k1.bodymask_labels.launches == before  # no kernel ran
 
 
+def test_launch_counts_survive_threads():
+    """The cohort and serve lanes launch from several threads; the counter's
+    read-modify-write must lose no update (fast thread switches, more
+    threads than cores)."""
+    import sys
+    import threading
+
+    from lungmask_tpu_torch.ops.kernels import count_launch
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    n_threads, per_thread = 32, 2000
+
+    def hammer():
+        for _ in range(per_thread):
+            count_launch(wrapper)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=hammer) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert wrapper.launches == n_threads * per_thread
+
+
 def test_wrapper_rejects_bad_shape():
     with pytest.raises(ValueError):
         k1.bodymask_labels(torch.zeros((2, 64, 64)))

@@ -31,6 +31,10 @@ def test_port_imports_without_jax_or_tqdm():
     res = _run(
         "import lungmask_tpu_torch, lungmask_tpu_torch.cli, lungmask_tpu_torch.inferer\n"
         "import lungmask_tpu_torch.transforms.postprocess\n"
+        "import lungmask_tpu_torch.transforms.postprocess_device\n"
+        "import lungmask_tpu_torch.transforms.host_pipeline\n"
+        "import lungmask_tpu_torch.runtime.cohort, lungmask_tpu_torch.runtime.serve\n"
+        "import lungmask_tpu_torch.metrics\n"
         "import lungmask_tpu_torch.ops.kernels.bodymask\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm'))\n"

@@ -123,7 +123,7 @@ def test_no_silent_cpu_fallback(weights):
     "kwargs, item",
     [
         ({"preprocessing": "device"}, 5),
-        ({"postprocessing_mode": "device"}, 6),
+        ({"preprocessing": "sharded"}, 5),
         ({"mesh": object()}, 10),
     ],
 )

@@ -111,5 +111,13 @@ def test_preprocess_hybrid_equal(bf16):
 
 
 def test_small_slices_wait_for_host_pipeline():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tpre.preprocess_hybrid(np.zeros((1, 100, 200), np.int16))
+    """Slices under 128² take the strict host pipeline, as JAX's fallback
+    does: the same boxes and the same normalized stack, bit for bit."""
+    vol = _volume(100, 200)
+    got, boxes = tpre.preprocess_hybrid(vol, compute_dtype=torch.float32, device="cpu")
+    want, want_boxes = jpre.preprocess_hybrid(vol)
+    np.testing.assert_array_equal(boxes, want_boxes)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.float32))
+    host, host_boxes = tpre.preprocess_host(vol, compute_dtype=torch.float32)
+    np.testing.assert_array_equal(host.numpy(), got.numpy())
+    np.testing.assert_array_equal(host_boxes, boxes)
