@@ -235,8 +235,7 @@ def _warmup(args, batchsize) -> LMInferer:
     inferer (``--serve`` goes on with it)."""
     import time
 
-    import numpy as np
-
+    from lungmask_tpu_torch.models.synthetic import lung_phantom
     from lungmask_tpu_torch.ops import native
 
     n = int(args.warmup)
@@ -250,15 +249,7 @@ def _warmup(args, batchsize) -> LMInferer:
     native.native_loaded()
     built = time.perf_counter() - t0
     logger.info(f"Warmup: kernels and host core ready in {built:.1f}s; {n}-slice phantom")
-    zz, yy, xx = np.ogrid[0:n, 0:512, 0:512]
-    vol = np.full((n, 512, 512), -1000, dtype=np.int16)
-    body2d = ((yy[0] - 256) / 200.0) ** 2 + ((xx[0] - 256) / 230.0) ** 2 < 1
-    vol[:, body2d] = 40
-    for cx in (160, 352):
-        lung = ((zz - n / 2) / (n * 0.45)) ** 2 + ((yy - 256) / 140.0) ** 2 + (
-            (xx - cx) / 90.0
-        ) ** 2 < 1
-        vol[lung] = -800
+    vol = lung_phantom(n)
     t0 = time.perf_counter()
     inferer.apply(vol)
     cold = time.perf_counter() - t0

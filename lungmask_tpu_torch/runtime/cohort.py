@@ -12,11 +12,10 @@ overlapping stages:
                                                                in device mode)
 
 so host decode of volume i+1 and host postprocessing of volume i-1 overlap
-device compute of volume i. The finisher-side postprocessing requires the
-inferer's split forward/finish API (``forward_preprocessed`` /
-``finish_forward``); with only ``apply`` the whole volume runs in the main
-thread and the finisher just writes. Queues are bounded (``prefetch``) so
-memory stays flat regardless of cohort size.
+device compute of volume i. The stages are the inferer's split-phase API:
+``preprocess_image`` in the loader, ``forward_preprocessed`` in the main
+thread, ``finish_forward`` in the finisher. Queues are bounded
+(``prefetch``) so memory stays flat regardless of cohort size.
 
 Every thread launches on the default CUDA stream, so the loader thread's
 bodymask kernel (K1), the main thread's U-Net and the finisher's device-mode
@@ -117,22 +116,6 @@ def run_cohort(
         used_names.add(name)
         return name
 
-    # Split-phase API: decode AND device preprocessing (incl. the volume
-    # upload) run in the loader thread; the U-Net dispatch runs in the main
-    # thread; host postprocessing/paste run in the finisher thread. Each
-    # volume's stages then overlap its neighbors'.
-    split_phase = hasattr(inferer, "preprocess_image") and hasattr(
-        inferer, "apply_preprocessed"
-    )
-    # Both halves of the forward/finish protocol must exist — the finisher
-    # thread calls finish_forward, and gating on forward_preprocessed alone
-    # would fail every volume of a partial duck-typed implementation.
-    split_finish = (
-        split_phase
-        and hasattr(inferer, "forward_preprocessed")
-        and hasattr(inferer, "finish_forward")
-    )
-
     waits = {
         "load_busy": 0.0,
         "load_wait": 0.0,
@@ -168,7 +151,7 @@ def run_cohort(
                 t0 = time.perf_counter()
                 try:
                     img = _load(src)
-                    pre = inferer.preprocess_image(img) if split_phase else None
+                    pre = inferer.preprocess_image(img)
                     waits["load_busy"] += time.perf_counter() - t0
                     _timed_put(in_q, (name_of(i, src), img, pre, None),
                                "load_wait")
@@ -196,11 +179,7 @@ def run_cohort(
             if err is None:
                 tb = time.perf_counter()
                 try:
-                    mask = (
-                        inferer.finish_forward(pre, payload)
-                        if split_finish
-                        else payload
-                    )
+                    mask = inferer.finish_forward(pre, payload)
                     if output_dir is not None:
                         out = img.with_array(mask)
                         loader.write_image(
@@ -244,12 +223,7 @@ def run_cohort(
                        "forward_backpressure")
             continue
         try:
-            if split_finish:
-                payload = inferer.forward_preprocessed(pre)
-            elif split_phase:
-                payload = inferer.apply_preprocessed(pre)
-            else:
-                payload = inferer.apply(img)
+            payload = inferer.forward_preprocessed(pre)
             waits["forward_busy"] += time.perf_counter() - t0
             _timed_put(out_q, (name, img, pre, payload, t0, None),
                        "forward_backpressure")

@@ -44,8 +44,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
-import numpy as np
-
 from lungmask_tpu_torch.logger import logger
 
 # Single-file response formats of the JAX lane; the port writes the NIfTI
@@ -384,15 +382,9 @@ def make_server(
     return httpd, service
 
 
-def serve_forever(
-    inferer, host: str = "127.0.0.1", port: int = 8080, warmup: Optional[int] = None
-) -> None:
-    """Blocking entry point of ``lungmask-torch --serve``; ``warmup`` slices
-    of a small phantom run through the inferer before the first request."""
-    if warmup:
-        phantom = np.full((warmup, 64, 64), -1024, dtype=np.int16)
-        phantom[:, 16:48, 16:48] = 40
-        inferer.apply(phantom)
+def serve_forever(inferer, host: str = "127.0.0.1", port: int = 8080) -> None:
+    """Blocking entry point of ``lungmask-torch --serve`` (``--warmup``
+    warms the inferer before it comes here)."""
     httpd, _ = make_server(inferer, host, port)
     actual = httpd.server_address
     logger.info(f"serving on http://{actual[0]}:{actual[1]} (POST /v1/segment)")

@@ -221,7 +221,7 @@ def test_cli_serve_and_warmup(weights, monkeypatch):
     serve_forever; ``--warmup`` alone runs the phantom and returns."""
     seen = {}
 
-    def fake_serve(inferer, host, port, warmup=None):
+    def fake_serve(inferer, host, port):
         seen.update(inferer=inferer, host=host, port=port)
 
     monkeypatch.setattr(serve, "serve_forever", fake_serve)
