@@ -25,7 +25,11 @@ card, then drives two paths at the production width (U-Net wf=6) on a
   two client threads, every response equal to ``apply``'s.
 
 Each path's calls run with every kernel's launch count set to 0 just before
-them and read just after.
+them and read just after. Kernel times are CUDA-event medians over runs of
+20 back-to-back launches (so the wrapper's host work between launches stays
+out of the window), beside each kernel's bound: the larger of its bytes
+over 3.35 TB/s and its operations over 67 TFLOP/s (float32, no tensor
+cores), the H100 SXM's published peaks.
 
 Phases: device, build, kernel, unet, stencil, fused, inferer, cli, postdev,
 cohort, serve; each prints its results on its own lines. The second-to-last line is a JSON
@@ -61,6 +65,14 @@ POOL_SHAPES = [(CHUNK, 256, 256, 64), (CHUNK, 128, 128, 128), (CHUNK, 64, 64, 25
 UP_SHAPES = [(CHUNK, 16, 16, 1024), (CHUNK, 32, 32, 512), (CHUNK, 64, 64, 256),
              (CHUNK, 128, 128, 128)]
 ODD_SHAPES = [(3, 33, 35, 4), (2, 17, 9, 12), (1, 3, 3, 5), (2, 8, 8, 3)]
+# K3 at shapes that straddle its tiles, and at the U-Net's upsamples of a
+# 96² volume's host-preprocessed stack (96² slices reach K3 at 6² to 48²).
+TILE_SHAPES = [(2, 37, 70, 24), (1, 5, 129, 136), (1, 1, 1, 8), (1, 1, 3, 5)]
+VOLUME96_SHAPES = [(2, 6, 6, 1024), (2, 12, 12, 512), (2, 24, 24, 256), (2, 48, 48, 128)]
+K1_BATCHES = (1, 192, 193)
+REPS = 20  # back-to-back launches per CUDA-event pair
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 UNET_LOGIT_ATOL, UNET_LOGIT_RTOL = 1e-3, 1e-4  # GPU f32 (TF32 off) vs CPU f32
 BF16_MIN_AGREEMENT = 0.98  # GPU bf16 argmax vs GPU f32, a gross check
 LUNG_MIN_FRACTION = 0.95  # share of each phantom lung given its class
@@ -68,8 +80,10 @@ COHORT_SLICES = (192, 160, 128, 96)  # the four cohort volumes: phantom[:n]
 SERVE_SLICES = (192, 128, 96)  # the three uploads
 
 
-def _times_ms(torch, fn, runs: int) -> list:
-    """``runs`` timings of ``fn`` in ms with CUDA events, after a warm-up."""
+def _times_ms(torch, fn, runs: int, reps: int = REPS) -> list:
+    """``runs`` timings of one call of ``fn`` in ms, after a warm-up: each
+    the CUDA-event time of ``reps`` back-to-back calls, divided by
+    ``reps``."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -77,17 +91,58 @@ def _times_ms(torch, fn, runs: int) -> list:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return times
 
 
-def _median_ms(torch, fn, runs: int = 10) -> float:
+def _median_ms(torch, fn, runs: int = 10, reps: int = REPS) -> float:
     import numpy as np
 
-    return float(np.median(_times_ms(torch, fn, runs)))
+    return float(np.median(_times_ms(torch, fn, runs, reps)))
+
+
+def _bound(nbytes: float, ops: float):
+    """(bound ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _in_turns(torch, fns: dict, runs: int = 5) -> dict:
+    """Median ms of each of ``fns``, ``runs`` timings each in one order and
+    ``runs`` in the reverse order."""
+    import numpy as np
+
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k] += _times_ms(torch, fns[k], runs)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def _ptxas_lines(report: str) -> list:
+    """One line per kernel from ptxas's report: name<dtype,vector>,
+    registers, spills."""
+    import re
+
+    lines, name = [], None
+    for ln in report.splitlines():
+        m = re.search(r"entry function '.*?(bodymask_kernel|avg_pool2_kernel|bilinear_up2_kernel)"
+                      r"(?:I(13__nv_bfloat16|f)Li(\d+)E)?", ln)
+        if m:
+            spill = "spills not reported"
+            name = m.group(1) + (f"<{'bf16' if m.group(2) != 'f' else 'f32'},{m.group(3)}>"
+                                 if m.group(2) else "")
+        elif name and "spill" in ln:
+            spill = ",".join(ln.split(",")[1:]).strip()
+        elif name and "Used" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            lines.append(f"{name}: {regs.group(1) if regs else '?'} registers, {spill}")
+            name = None
+    return lines
 
 
 def _random_slices(seed: int, b: int):
@@ -224,13 +279,20 @@ class Smoke:
         wall = time.perf_counter() - t0
         print(f"[build] K1 nvcc {t_k1:.2f} s | K2+K3 nvcc {t_st:.2f} s | host core g++ "
               f"{t_host:.2f} s | all, in parallel, {wall:.2f} s")
+        from lungmask_tpu_torch.ops.kernels import _nvcc
+
+        for lib in ("libbodymask", "libstencil"):
+            for line in _ptxas_lines(_nvcc.ptxas_report(lib)):
+                print(f"[build] ptxas {line}")
         self.check(loaded, "the native host core did not build or load")
 
     def kernel(self):
-        import numpy as np
-
         torch = self.torch
-        from lungmask_tpu_torch.models.synthetic import lung_phantom
+        from lungmask_tpu_torch.models.synthetic import (
+            BODYMASK_EDGE_CASES,
+            bodymask_edge_slices,
+            lung_phantom,
+        )
         from lungmask_tpu_torch.ops.kernels import bodymask as k1
         from lungmask_tpu_torch.transforms import preprocess
 
@@ -238,10 +300,13 @@ class Smoke:
         vol = lung_phantom(192)
         self.state["phantom"] = vol
         packed = torch.from_numpy(preprocess.pack_bodymask_bits(vol)).to(dev)
-        inputs = {
-            "phantom192": preprocess.smalls_from_packed(packed).float(),
-            "random64": torch.from_numpy(_random_slices(1, 64)).to(dev),
-        }
+        phantom = preprocess.smalls_from_packed(packed).float()
+        random64 = torch.from_numpy(_random_slices(1, 64)).to(dev)
+        inputs = {"random64": random64,
+                  **{f"phantom{b}": torch.cat([phantom, random64])[:b] for b in K1_BATCHES}}
+        edge = torch.from_numpy(bodymask_edge_slices()).to(dev)
+        inputs.update({name: edge[i : i + 1] for i, name in enumerate(BODYMASK_EDGE_CASES)})
+        inputs["edge_all"] = edge
         err = 0
         for name, x in inputs.items():
             labels, mask = k1.bodymask_labels(x)
@@ -252,20 +317,22 @@ class Smoke:
                 int((mask.int() - ref_mask.int()).abs().max()),
             )
             n_comp = int(torch.unique(ref_labels).numel()) - 1
-            print(f"[kernel] {name}: max_abs_err {e} over labels and masks, "
+            print(f"[kernel] {name} (B={x.shape[0]}): max_abs_err {e} over labels and masks, "
                   f"{n_comp} label values")
             self.check(e == 0, f"K1 differs from its plain version on {name}")
             err = max(err, e)
         x = inputs["phantom192"]
-        # Turns of plain, kernel, kernel, plain, 5 runs each: the median of 10.
-        plain = _times_ms(torch, lambda: k1.bodymask_labels_reference(x), 5)
-        kern = _times_ms(torch, lambda: k1.bodymask_labels(x), 5)
-        kern += _times_ms(torch, lambda: k1.bodymask_labels(x), 5)
-        plain += _times_ms(torch, lambda: k1.bodymask_labels_reference(x), 5)
-        ms, plain_ms = float(np.median(kern)), float(np.median(plain))
-        print(f"[kernel] B=192: K1 {ms:.4f} ms | plain torch {plain_ms:.4f} ms "
-              f"(median of 10 CUDA-event runs each, in turns)")
-        self.state["k1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        med = _in_turns(torch, {"kernel": lambda: k1.bodymask_labels(x),
+                                "plain": lambda: k1.bodymask_labels_reference(x)})
+        pixels = x.numel()
+        bound_ms, bound_by = _bound(pixels * (4 + 4 + 1), pixels)  # f32 in, int32 + u8 out
+        edge_ms = _median_ms(torch, lambda: k1.bodymask_labels(edge))
+        print(f"[kernel] B=192: K1 {med['kernel']:.4f} ms | plain torch {med['plain']:.4f} ms | "
+              f"bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / med['kernel']:.1%} "
+              f"(median of 10 CUDA-event runs of {REPS} launches each, in turns) | the 8 edge "
+              f"slices {edge_ms:.4f} ms")
+        self.state["k1"] = {"max_abs_err": err, "ms": med["kernel"], "plain_ms": med["plain"],
+                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
     def unet(self):
         torch = self.torch
@@ -311,8 +378,8 @@ class Smoke:
             a16 = unet.unet_argmax(gpu16, x)
             agree = float((a32 == a16).float().mean())
             classes = sorted(int(c) for c in torch.unique(a32))
-            ms16 = _median_ms(torch, lambda: unet.unet_argmax(gpu16, x), 5)
-            ms32 = _median_ms(torch, lambda: unet.unet_argmax(gpu32, x), 5)
+            ms16 = _median_ms(torch, lambda: unet.unet_argmax(gpu16, x), 5, reps=1)
+            ms32 = _median_ms(torch, lambda: unet.unet_argmax(gpu32, x), 5, reps=1)
         print(f"[unet] 32 slices 256²: bf16 argmax agreement with f32 {agree:.6f}, "
               f"classes {classes}")
         print(f"[unet] forward+argmax, batch 32: bf16 {ms16:.3f} ms "
@@ -321,7 +388,6 @@ class Smoke:
         self.check(classes == [0, 1, 2], f"expected classes 0-2, got {classes}")
 
     def stencil(self):
-        import numpy as np
         import torch.nn.functional as F
 
         torch = self.torch
@@ -329,20 +395,27 @@ class Smoke:
 
         dev = torch.device("cuda", 0)
         gen = torch.Generator(device=dev).manual_seed(0)
-        ops = {  # name: (wrapper, plain version, library op on the channels_last view)
+        ops = {  # name: (wrapper, plain version, library op on the channels_last view,
+                 #        float32 operations per output element)
             "avg_pool2": (st.avg_pool2, st.avg_pool2_reference, "F.avg_pool2d",
-                          lambda x: F.avg_pool2d(x.permute(0, 3, 1, 2), 2)),
+                          lambda x: F.avg_pool2d(x.permute(0, 3, 1, 2), 2), 4),
+            # 18 per input element: two row-pass values of 3 operations each,
+            # then 4 outputs of 3 each.
             "bilinear_up2": (st.bilinear_up2, st.bilinear_up2_reference, "F.interpolate",
                              lambda x: F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
-                                                     mode="bilinear", align_corners=False)),
+                                                     mode="bilinear", align_corners=False),
+                             18 / 4),
         }
+        pool96 = [(2, 96, 96, 64), (2, 48, 48, 128), (2, 24, 24, 256), (2, 12, 12, 512)]
         cases = [("avg_pool2", s) for s in POOL_SHAPES] + [("bilinear_up2", s) for s in UP_SHAPES]
         cases += [(name, s) for s in ODD_SHAPES for name in ops]
-        cases.append(("bilinear_up2", (1, 1, 3, 5)))  # one row: both clamps meet
+        cases += [("bilinear_up2", s) for s in TILE_SHAPES + VOLUME96_SHAPES]
+        cases += [("avg_pool2", s) for s in pool96]
         errs = {name: 0.0 for name in ops}
-        sums = {name: {"kernel": 0.0, "plain": 0.0, "library": 0.0} for name in ops}
+        sums = {name: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0} for name in ops}
+        bound_by = {name: set() for name in ops}
         for name, shape in cases:
-            kern, plain, lib_name, lib = ops[name]
+            kern, plain, lib_name, lib, ops_per_out = ops[name]
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn(shape, generator=gen, device=dev).to(dtype)
                 got, want = kern(x), plain(x)
@@ -356,35 +429,35 @@ class Smoke:
                     print(f"[stencil] {name} {shape} {dt}: max_abs_err {err} bit-equal {same}")
                     self.check(same, f"{name} differs from its plain version at {shape} {dt}")
                     continue
-                # Median of 10 CUDA-event runs each, in turns: 5 runs of each
-                # in one order, then 5 in the reverse order.
-                fns = {"kernel": lambda: kern(x), "plain": lambda: plain(x),
-                       "library": lambda: lib(x)}
-                times = {k: [] for k in fns}
-                for order in (("kernel", "plain", "library"), ("library", "plain", "kernel")):
-                    for k in order:
-                        times[k] += _times_ms(torch, fns[k], 5)
-                med = {k: float(np.median(v)) for k, v in times.items()}
+                med = _in_turns(torch, {"kernel": lambda: kern(x), "plain": lambda: plain(x),
+                                        "library": lambda: lib(x)})
+                bound_ms, by = _bound((x.numel() + got.numel()) * x.element_size(),
+                                      got.numel() * ops_per_out)
+                bound_by[name].add(by)
                 for k in med:
                     sums[name][k] += med[k]
-                nbytes = (x.numel() + got.numel()) * x.element_size()
-                rate = nbytes / med["kernel"] / 1e6  # GB/s
+                sums[name]["bound"] += bound_ms
                 slower = [k for k in ("plain", "library") if med["kernel"] > med[k]]
                 note = (f" | SLOWER than {' and '.join(slower)}; the kernel stays"
                         if slower else "")
                 print(f"[stencil] {name} {shape} {dt}: max_abs_err {err} bit-equal {same} | "
-                      f"kernel {med['kernel']:.4f} ms ({rate:.1f} GB/s, "
-                      f"{100 * rate / 3350:.1f}% of 3.35 TB/s) | plain {med['plain']:.4f} ms | "
+                      f"kernel {med['kernel']:.4f} ms | bound {bound_ms:.4f} ms ({by}), "
+                      f"share {bound_ms / med['kernel']:.1%} | plain {med['plain']:.4f} ms | "
                       f"{lib_name} {med['library']:.4f} ms{note}")
                 self.check(same, f"{name} differs from its plain version at {shape} {dt}")
         for name in ops:
             t = sums[name]
             print(f"[stencil] {name} per 32-slice bf16 chunk (sum of the U-Net's 4 shapes): "
-                  f"kernel {t['kernel']:.4f} ms | plain {t['plain']:.4f} ms | "
-                  f"{ops[name][2]} {t['library']:.4f} ms")
+                  f"kernel {t['kernel']:.4f} ms | bound {t['bound']:.4f} ms "
+                  f"({'+'.join(sorted(bound_by[name]))}), share "
+                  f"{t['bound'] / t['kernel']:.1%} | plain {t['plain']:.4f} ms | "
+                  f"{ops[name][2]} {t['library']:.4f} ms (medians of 10 CUDA-event runs of "
+                  f"{REPS} launches each, in turns)")
         self.state["stencil"] = {
             name: {"max_abs_err": errs[name], "ms": sums[name]["kernel"],
-                   "plain_ms": sums[name]["plain"]}
+                   "plain_ms": sums[name]["plain"], "bound_ms": sums[name]["bound"],
+                   "bound_by": "+".join(sorted(bound_by[name])),
+                   "library_ms": sums[name]["library"]}
             for name in ops
         }
 
@@ -797,9 +870,8 @@ def main() -> int:
         "source": source,
         "replaces": replaces,
         "launches": smoke.state["launches"][name],
-        "max_abs_err": measured[name]["max_abs_err"],
-        "ms": measured[name]["ms"],
-        "plain_ms": measured[name]["plain_ms"],
+        **{key: measured[name][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     } for name, (source, replaces) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -197,3 +197,68 @@ def lung_phantom(n_slices: int, size: int = 512) -> np.ndarray:
                 sl[disk & body & ~lung_l & ~lung_r] = hu
         sl += rng.integers(-30, 30, size=sl.shape).astype(np.int16)
     return vol
+
+
+BODYMASK_EDGE_CASES = (
+    "spiral", "serpentine", "checker6", "checker5", "diagonal_leak", "full", "empty",
+    "borders",
+)
+
+
+def bodymask_edge_slices() -> np.ndarray:
+    """(8, 128, 128) float32 HU slices at the edges of the bodymask chain, in
+    the order of :data:`BODYMASK_EDGE_CASES` (body 40 HU, air −1000 HU):
+
+    * ``spiral``: 3-pixel corridors in a solid body, concentric square rings
+      joined by one gap each on alternating sides and open to the border:
+      the flood winds through every ring, and no part of it is a hole;
+    * ``serpentine``: one 7-pixel body band folded 8 times across the slice;
+    * ``checker6``, ``checker5``: checkerboards of 6- and 5-pixel squares
+      whose body and air squares touch only at corners (4- vs 8-connected);
+    * ``diagonal_leak``: a cavity joined to the border by a chain of
+      plus-shaped air cells that touch only diagonally, so the 8-neighbour
+      flood reaches it (it is no hole) though no 4-connected path does;
+    * ``full`` and ``empty``;
+    * ``borders``: bodies touching all four borders and corners."""
+    n = 128
+    out = np.full((len(BODYMASK_EDGE_CASES), n, n), -1000, dtype=np.float32)
+    yy, xx = np.mgrid[0:n, 0:n]
+    spiral = np.full((n, n), 40.0, np.float32)
+    for k, lo in enumerate(range(1, 60, 6)):  # ring k: its corridor spans lo..lo+2
+        hi = n - 1 - lo
+        ring = (np.maximum(np.abs(yy - 63.5), np.abs(xx - 63.5)) <= hi - 63.5) & ~(
+            np.maximum(np.abs(yy - 63.5), np.abs(xx - 63.5)) < hi - 63.5 - 2
+        )
+        spiral[ring] = -1000
+        gap = slice(60, 66)  # the gap through the wall inside ring k
+        if k % 2:
+            spiral[gap, lo + 3 : lo + 6] = -1000
+        else:
+            spiral[gap, hi - 5 : hi - 2] = -1000
+    spiral[60:66, 0:4] = -1000  # the outer ring's door to the border
+    out[0] = spiral
+    for k in range(8):  # serpentine: horizontal bands joined at alternating ends
+        y0 = 6 + 15 * k
+        out[1, y0 : y0 + 7, 6:122] = 40
+        if k < 7:
+            x0 = 115 if k % 2 == 0 else 6
+            out[1, y0 : y0 + 22, x0 : x0 + 7] = 40
+    out[2] = np.where(((yy // 6) + (xx // 6)) % 2 == 0, 40, -1000)
+    out[3] = np.where(((yy // 5) + (xx // 5)) % 2 == 0, 40, -1000)
+    leak = np.full((n, n), 40.0, np.float32)
+    leak[50:70, 50:70] = -1000
+    for c in range(1, 52, 2):  # plus shapes centred on the diagonal
+        for dy, dx in ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1)):
+            leak[c + dy, c + dx] = -1000
+    out[4] = leak
+    out[5] = 40
+    b = out[7]
+    for y0, x0 in ((0, 0), (0, 100), (100, 0), (100, 100)):
+        b[y0 : y0 + 28, x0 : x0 + 28] = 40
+    b[0:12, 45:83] = 40
+    b[116:128, 45:83] = 40
+    b[45:83, 0:12] = 40
+    b[45:83, 116:128] = 40
+    b[40:88, 40:88] = 40
+    b[56:72, 56:72] = -1000  # a cavity
+    return out

@@ -15,13 +15,13 @@ Replace the TPU kernels of ``lungmask_tpu/ops/pallas/stencil.py``:
 What bounds them on the H100: bytes — one read of each input element and
 one write of each output element. The U-Net's four pools move 629 MB and
 its four upsamples 1258 MB per 32-slice bf16 chunk at 256² (wf=6), 0.188 ms
-and 0.376 ms at 3.35 TB/s. The kernels (``lungmask_tpu_torch/csrc/stencil.cu``)
-give each thread one output pixel (K2) or one input pixel and its 2×2 output
-quad (K3) over a 16-byte vector of channels, neighbouring threads on
-neighbouring channels, so the channels_last tensors are read and written in
-coalesced 16-byte accesses, with int64 offsets and grid-stride loops. Every
-product and sum is rounded as the plain version rounds it (no FMA), so the
-kernels are bit-equal to :func:`avg_pool2_reference` and
+and 0.376 ms at 3.35 TB/s. K2 (``lungmask_tpu_torch/csrc/stencil.cu``)
+gives each thread one output pixel over a 16-byte vector of channels,
+neighbouring threads on neighbouring channels. K3 stages a clamped input
+tile in shared memory and computes each row pass once; its tile plan is
+chosen here (:func:`up2_plan`) and passed to the launcher. Every product
+and sum is rounded as the plain version rounds it (no FMA), so the kernels
+are bit-equal to :func:`avg_pool2_reference` and
 :func:`bilinear_up2_reference` in bf16 and float32.
 
 Build and binding as K1 (``ops/kernels/_nvcc.py``). :func:`avg_pool2` and
@@ -34,7 +34,8 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,6 +44,9 @@ from lungmask_tpu_torch.ops.kernels import _nvcc, count_launch
 SOURCE = os.path.join(_nvcc.CSRC, "stencil.cu")
 _LIB: Optional[ctypes.CDLL] = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+UP2_SMEM_BUDGET = 56 * 1024  # K3's tile: up to four blocks per SM
+UP2_MAX_THREADS = 256
 
 
 def avg_pool2_reference(x: torch.Tensor) -> torch.Tensor:
@@ -72,16 +76,65 @@ def bilinear_up2_reference(x: torch.Tensor) -> torch.Tensor:
     return _quarter_lerps(_quarter_lerps(x.float(), 1), 2).to(x.dtype)
 
 
+@dataclass(frozen=True)
+class Up2Plan:
+    """K3's tiling of an (N, H, W, C) input: ``rows`` input rows and
+    ``tile_w`` input columns per tile, ``cvt`` vectors of ``vec`` channels
+    per slab, ``threads`` per block (a multiple of ``cvt``). Each block
+    stages a clamped (rows + 2) × (tile_w + 2) × slab tile."""
+
+    vec: int
+    rows: int
+    tile_w: int
+    cvt: int
+    threads: int
+    itemsize: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return (self.rows + 2) * (self.tile_w + 2) * self.cvt * self.vec * self.itemsize
+
+    def grid(self, shape: Tuple[int, int, int, int]) -> Tuple[int, int, int, int]:
+        """(images, row tiles, column tiles, channel slabs): one block each."""
+        n, h, w, c = shape
+        vectors = -(-c // self.vec)
+        return n, -(-h // self.rows), -(-w // self.tile_w), -(-vectors // self.cvt)
+
+
+def up2_plan(shape: Tuple[int, int, int, int], itemsize: int, aligned: bool = True) -> Up2Plan:
+    """K3's tile plan for an (N, H, W, C) input of ``itemsize``-byte
+    elements. 16-byte vectors when C is a whole number of them and both
+    bases are 16-byte ``aligned``, else single channels. A slab is up to 32
+    vectors (a warp's 512 contiguous bytes). Rows (at least 8, more for
+    narrow slabs) and columns (up to 16) halve until the staged tile fits
+    ``UP2_SMEM_BUDGET``."""
+    n, h, w, c = shape
+    full = 16 // itemsize
+    vec = full if aligned and c % full == 0 else 1
+    cvt = min(-(-c // vec), 32)
+    rows = min(h, max(8, UP2_MAX_THREADS // 2 // cvt))
+    tile_w = min(w, 16)
+
+    def size(r, tw):
+        return (r + 2) * (tw + 2) * cvt * vec * itemsize
+
+    while tile_w > 1 and size(rows, tile_w) > UP2_SMEM_BUDGET:
+        tile_w = -(-tile_w // 2)
+    while rows > 1 and size(rows, tile_w) > UP2_SMEM_BUDGET:
+        rows = -(-rows // 2)
+    threads = cvt * min(2 * rows, max(1, UP2_MAX_THREADS // cvt))
+    return Up2Plan(vec=vec, rows=rows, tile_w=tile_w, cvt=cvt, threads=threads, itemsize=itemsize)
+
+
 def build() -> ctypes.CDLL:
     """Compile (when missing or older than its source) and load K2 and K3."""
     global _LIB
     if _LIB is None:
         lib = _nvcc.build(SOURCE, "libstencil")
+        shape = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int64] * 4 + [ctypes.c_int]
+        lib.lm_avg_pool2.argtypes = shape + [ctypes.c_int, ctypes.c_void_p]
+        lib.lm_bilinear_up2.argtypes = shape + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         for fn in (lib.lm_avg_pool2, lib.lm_bilinear_up2):
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -97,16 +150,18 @@ def _checked(x: torch.Tensor, op: str) -> torch.Tensor:
     return x.contiguous()
 
 
-def _launch(fn_name: str, x: torch.Tensor, y: torch.Tensor) -> bool:
-    """Launch a stencil kernel from ``x`` into ``y``; False when there is no
-    work (an empty tensor)."""
+def _launch(fn_name: str, x: torch.Tensor, y: torch.Tensor, *plan: int) -> bool:
+    """Launch a stencil kernel from ``x`` into ``y`` (with K3's tile plan
+    fields after the dtype); False when there is no work (an empty
+    tensor)."""
     if y.numel() == 0:
         return False
     fn = getattr(build(), fn_name)
     n, h, w, c = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(
-        x.data_ptr(), y.data_ptr(), n, h, w, c, _DTYPE_CODES[x.dtype], x.device.index, stream
+        x.data_ptr(), y.data_ptr(), n, h, w, c, _DTYPE_CODES[x.dtype], *plan,
+        x.device.index, stream,
     )
     if rc != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {rc}")
@@ -135,7 +190,8 @@ def bilinear_up2(x: torch.Tensor) -> torch.Tensor:
         return bilinear_up2_reference(x)
     n, h, w, c = x.shape
     y = torch.empty((n, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
-    if _launch("lm_bilinear_up2", x, y):
+    p = up2_plan((n, h, w, c), x.element_size(), (x.data_ptr() | y.data_ptr()) % 16 == 0)
+    if _launch("lm_bilinear_up2", x, y, p.vec, p.rows, p.tile_w, p.cvt, p.threads):
         count_launch(bilinear_up2)
     return y
 

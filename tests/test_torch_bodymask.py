@@ -7,12 +7,15 @@ equal bit for bit. JAX is imported inside the parity tests only, so the
 (``pytest --noconftest -m cuda tests/test_torch_bodymask.py``).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 from scipy import ndimage
 
 import torch_parity as tp
+from lungmask_tpu_torch.models import synthetic
 from lungmask_tpu_torch.ops import cc, morphology
 from lungmask_tpu_torch.ops.kernels import bodymask as k1
 
@@ -44,6 +47,32 @@ def test_reference_matches_jax_xla_chain():
     np.testing.assert_array_equal(mask.numpy(), want_mask)
     np.testing.assert_array_equal(labels.numpy(), want_labels)
     assert len(np.unique(want_labels)) > 2  # several components exercised
+
+
+@functools.lru_cache(maxsize=1)
+def _edge_slices_and_jax():
+    slices = synthetic.bodymask_edge_slices()
+    return slices, _jax_chain(slices)
+
+
+@pytest.mark.parametrize("case", synthetic.BODYMASK_EDGE_CASES)
+def test_reference_matches_jax_on_edge_slices(case):
+    """Spiral and serpentine paths, 4- vs 8-connected contacts, a cavity
+    that reaches the border only diagonally, full and empty slices, bodies
+    on every border: the plain chain equals the JAX chain bit for bit."""
+    i = synthetic.BODYMASK_EDGE_CASES.index(case)
+    slices, (want_labels, want_mask) = _edge_slices_and_jax()
+    labels, mask = k1.bodymask_labels_reference(torch.from_numpy(slices[i : i + 1]))
+    np.testing.assert_array_equal(mask.numpy()[0], want_mask[i])
+    np.testing.assert_array_equal(labels.numpy()[0], want_labels[i])
+    if case == "diagonal_leak":  # the flood is 8-connected: the cavity stays open
+        assert not mask[0, 55:65, 55:65].any()
+    if case == "spiral":  # every corridor is open to the border: no hole
+        assert not mask[0, 60:66, 1:4].any() and len(np.unique(want_labels[i])) > 2
+    if case == "empty":
+        assert not mask.any()
+    if case == "full":  # the closing's and both erosions' zero borders leave 3..124
+        assert int(mask.sum()) == 122 * 122 and set(np.unique(labels.numpy())) == {0, 388}
 
 
 def test_wrapper_takes_plain_version_on_cpu():
@@ -171,9 +200,14 @@ def test_reference_matches_pallas_interpret():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_version_on_gpu():
+@pytest.mark.parametrize("inputs", ["seeded1", "seeded64", "seeded192", "seeded193", "edge"])
+def test_kernel_matches_plain_version_on_gpu(inputs):
     dev = tp.cuda_device()
-    slices = torch.from_numpy(tp.bodymask_slices(3, b=64)).to(dev)
+    if inputs == "edge":
+        slices = synthetic.bodymask_edge_slices()
+    else:
+        slices = tp.bodymask_slices(3, b=int(inputs[len("seeded") :]))
+    slices = torch.from_numpy(slices).to(dev)
     before = k1.bodymask_labels.launches
     labels, mask = k1.bodymask_labels(slices)
     torch.cuda.synchronize()

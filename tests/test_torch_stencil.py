@@ -30,6 +30,10 @@ ONE_ROW = (1, 1, 3, 5)  # K3's clamps meet: prev = cur = next
 # The U-Net's stencil inputs at wf=6: the four pools, then the four upsamples.
 UNET_POOL = [(256, 256, 64), (128, 128, 128), (64, 64, 256), (32, 32, 512)]
 UNET_UP = [(16, 16, 1024), (32, 32, 512), (64, 64, 256), (128, 128, 128)]
+# K3's tiles straddled: ragged rows, columns and channel slabs, one pixel.
+TILE_SHAPES = [(2, 37, 70, 24), (1, 5, 129, 136), (1, 1, 1, 8)]
+# The U-Net's upsamples of a 96² volume's host-preprocessed stack.
+VOLUME96_UP = [(2, 6, 6, 1024), (2, 12, 12, 512), (2, 24, 24, 256), (2, 48, 48, 128)]
 
 
 def _normal(shape, seed):
@@ -64,7 +68,7 @@ def test_pool_plain_matches_jax(shape):
     assert np.abs(got16 - want16).max() <= 0.05
 
 
-@pytest.mark.parametrize("shape", UP_SHAPES + ODD_SHAPES + [ONE_ROW])
+@pytest.mark.parametrize("shape", UP_SHAPES + ODD_SHAPES + [ONE_ROW] + TILE_SHAPES + VOLUME96_UP)
 def test_up2_plain_matches_jax(shape):
     import jax.numpy as jnp
 
@@ -118,6 +122,42 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
             fn(torch.zeros((4, 4, 2)))
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize(
+    "shape",
+    [(32,) + s for s in UNET_UP] + UP_SHAPES + ODD_SHAPES + [ONE_ROW] + TILE_SHAPES + VOLUME96_UP,
+)
+def test_up2_plan_covers_input_once(shape, itemsize):
+    """K3's tile plan, walked as the kernel walks it, takes every input row,
+    column and channel exactly once, and its block fits the card."""
+    n, h, w, c = shape
+    for aligned in (True, False):
+        p = stencil.up2_plan(shape, itemsize, aligned)
+        assert p.vec in (1, 16 // itemsize) and c % p.vec == 0
+        assert p.threads % p.cvt == 0 and p.cvt <= p.threads <= stencil.UP2_MAX_THREADS
+        assert p.smem_bytes <= stencil.SMEM_LIMIT
+        images, tiles_h, tiles_w, slabs = p.grid(shape)
+        rows, cols, chans = np.zeros(h, int), np.zeros(w, int), np.zeros(c, int)
+        for ti in range(tiles_h):  # output rows 2i, 2i+1 for i = i0 + r < h
+            rows[[ti * p.rows + r for r in range(p.rows) if ti * p.rows + r < h]] += 1
+        for tj in range(tiles_w):  # columns j0 + jj, jj < min(tile_w, w - j0)
+            j0 = tj * p.tile_w
+            cols[j0 : j0 + min(p.tile_w, w - j0)] += 1
+        for slab in range(slabs):  # vectors whose first channel is below c
+            for v in range(p.cvt):
+                ch = (slab * p.cvt + v) * p.vec
+                if ch < c:
+                    chans[ch : ch + p.vec] += 1
+        assert images == n
+        assert (rows == 1).all() and (cols == 1).all() and (chans == 1).all()
+
+
+def test_up2_plan_fills_the_card_at_the_smallest_unet_shape():
+    """32 × 16² × 1024 bf16 still gives at least two blocks per SM (132)."""
+    shape = (32, 16, 16, 1024)
+    assert np.prod(stencil.up2_plan(shape, 2).grid(shape)) >= 2 * 132
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
@@ -128,7 +168,7 @@ def test_kernels_bit_equal_plain_versions_on_gpu(dtype):
     dev = tp.cuda_device()
     cases = [("pool", (2,) + s) for s in UNET_POOL] + [("up", (2,) + s) for s in UNET_UP]
     cases += [(op, s) for s in ODD_SHAPES + [(2, 8, 8, 3)] for op in ("pool", "up")]
-    cases.append(("up", ONE_ROW))
+    cases += [("up", s) for s in [ONE_ROW] + TILE_SHAPES + VOLUME96_UP]
     for i, (op, shape) in enumerate(cases):
         x = torch.from_numpy(_normal(shape, 10 + i)).to(dev, dtype)
         fn = stencil.avg_pool2 if op == "pool" else stencil.bilinear_up2
