@@ -19,10 +19,21 @@ card, then drives two paths at the production width (U-Net wf=6) on a
   single model and fused, its cleanup of one class map on the card held
   bit for bit against the same cleanup on the CPU, and its masks compared
   with the exact path's (``metrics.compare_masks``);
-* the cohort lane — ``run_cohort`` over four phantom NIfTI files, exact and
-  device mode, every mask equal to ``apply``'s;
+* DICOM — the 192-slice phantom written as an uncompressed series by the
+  port's writer, through ``load_input_image(SERIES_DIR)`` and ``apply`` and
+  through the CLI to ``.nii.gz`` and to ``.dcm``, every mask equal to
+  ``apply``'s on the same array (K1/K2/K3 launched 1/24/24); a 32-slice RLE
+  series; one slice in each transfer syntax the port can encode without
+  Pillow or CharLS, and the two committed JPEG 2000 / JPEG-LS fixtures
+  (``tests/data/torch_port/``), each decoded bit-exactly (the lossy DCT
+  syntaxes within 2); the codec core must be the native library built into
+  ``lungmask_tpu_torch/_build/``;
+* the cohort lane — ``run_cohort`` over four phantom NIfTI files and one
+  DICOM series directory, exact and device mode, every mask equal to
+  ``apply``'s;
 * the serve lane — ``make_server`` in this process, three NIfTI uploads from
-  two client threads, every response equal to ``apply``'s.
+  two client threads and one zipped DICOM series answered with ``out=.dcm``,
+  every response equal to ``apply``'s.
 
 Each path's calls run with every kernel's launch count set to 0 just before
 them and read just after. Kernel times are CUDA-event medians over runs of
@@ -31,8 +42,8 @@ out of the window), beside each kernel's bound: the larger of its bytes
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32, no tensor
 cores), the H100 SXM's published peaks.
 
-Phases: device, build, kernel, unet, stencil, fused, inferer, cli, postdev,
-cohort, serve; each prints its results on its own lines. The second-to-last line is a JSON
+Phases: device, build, kernel, unet, stencil, fused, inferer, cli, dicom,
+postdev, cohort, serve; each prints its results on its own lines. The second-to-last line is a JSON
 object describing the kernels; the last line is ``{"ok": true, "device":
 {...}}`` and is printed only when every phase passed. Exits non-zero,
 printing no result, when no CUDA device is available or any phase fails.
@@ -41,6 +52,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
@@ -48,6 +60,7 @@ import sys
 import tempfile
 import time
 import traceback
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -78,6 +91,16 @@ BF16_MIN_AGREEMENT = 0.98  # GPU bf16 argmax vs GPU f32, a gross check
 LUNG_MIN_FRACTION = 0.95  # share of each phantom lung given its class
 COHORT_SLICES = (192, 160, 128, 96)  # the four cohort volumes: phantom[:n]
 SERVE_SLICES = (192, 128, 96)  # the three uploads
+SERIES_SLICES = 64  # the DICOM series of the cohort and serve lanes
+RLE_SLICES = 32
+HTJ2K_CROP = 128  # the pure-Python HTJ2K encoder takes ~3 s per 512² slice
+DCT_TOLERANCE = 2  # quant=1 DCT round trip, the bound of tests/test_codecs.py
+# The committed fixtures the card's machine cannot encode (no Pillow or
+# CharLS there): made by tests/test_torch_codecs.py from synthetic.codec_slice.
+FIXTURE_DIR = "tests/data/torch_port"
+FIXTURE_SEED = 5
+KEPT_TAGS = {"0010|0010": "DOE^JANE", "0010|0020": "P0042", "0008|0020": "20260102",
+             "0020|000d": "1.2.826.0.1.3680043.10.1464.3.1"}
 
 
 def _times_ms(torch, fn, runs: int, reps: int = REPS) -> list:
@@ -203,6 +226,15 @@ def _random_params(seed: int, n_classes: int = 3):
     return params
 
 
+def _write_series(img, directory: str) -> None:
+    """``img`` as an uncompressed DICOM series (``ct_0000.dcm`` ...) written
+    by the port's writer into the new ``directory``."""
+    from lungmask_tpu_torch.io import loader
+
+    os.makedirs(directory)
+    loader.write_dicom_series(img, os.path.join(directory, "ct.dcm"))
+
+
 def _kernels():
     """The launch-counted wrappers: K1, K2, K3."""
     from lungmask_tpu_torch.ops.kernels import bodymask, stencil
@@ -262,6 +294,7 @@ class Smoke:
         )
 
     def build(self):
+        from lungmask_tpu_torch.io import codecs
         from lungmask_tpu_torch.ops import native
         from lungmask_tpu_torch.ops.kernels import bodymask as k1
         from lungmask_tpu_torch.ops.kernels import stencil
@@ -273,12 +306,21 @@ class Smoke:
 
         # One compiler per source, all started together.
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=3) as ex:
-            jobs = [ex.submit(timed, fn) for fn in (k1.build, stencil.build, native.native_loaded)]
-            (_, t_k1), (_, t_st), (loaded, t_host) = [job.result() for job in jobs]
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            jobs = [ex.submit(timed, fn) for fn in (k1.build, stencil.build, native.native_loaded,
+                                                     codecs.get_lib)]
+            (_, t_k1), (_, t_st), (loaded, t_host), (codec_lib, t_codec) = [
+                job.result() for job in jobs]
         wall = time.perf_counter() - t0
         print(f"[build] K1 nvcc {t_k1:.2f} s | K2+K3 nvcc {t_st:.2f} s | host core g++ "
-              f"{t_host:.2f} s | all, in parallel, {wall:.2f} s")
+              f"{t_host:.2f} s | DICOM codecs g++ {t_codec:.2f} s | all, in parallel, "
+              f"{wall:.2f} s")
+        print(f"[build] DICOM codec library: {codec_lib._name if codec_lib else None}")
+        # The codecs fall back to pure-Python RLE without a compiler; a failed
+        # build must not hide behind that fallback.
+        build_dir = os.path.realpath(os.path.join(REPO, "lungmask_tpu_torch", "_build"))
+        self.check(codec_lib is not None and os.path.dirname(os.path.realpath(codec_lib._name))
+                   == build_dir, f"the native DICOM codec library is not in {build_dir}")
         from lungmask_tpu_torch.ops.kernels import _nvcc
 
         for lib in ("libbodymask", "libstencil"):
@@ -629,6 +671,131 @@ class Smoke:
         print(f"[cli] mask read back equals LMInferer.apply voxel for voxel: {same}")
         self.check(same, "CLI mask differs from LMInferer.apply")
 
+    def dicom(self):
+        import numpy as np
+
+        from lungmask_tpu_torch.io import dicom, image, loader
+
+        tmp, vol, inferer = self.state["tmp"], self.state["phantom"], self.state["inferer"]
+        times = {}
+        src = image.MedicalImage(vol, spacing=(0.7, 0.7, 2.5), metadata=dict(KEPT_TAGS))
+        series = os.path.join(tmp, "series")
+        t0 = time.perf_counter()
+        _write_series(src, series)
+        times[f"write {len(vol)} uncompressed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        img = loader.load_input_image(series, disable_tqdm=True, read_metadata=True)
+        times[f"scan+decode {len(vol)} uncompressed"] = time.perf_counter() - t0
+        self.check(np.array_equal(img.array, vol) and img.spacing == (0.7, 0.7, 2.5),
+                   f"the series reads back as {img.array.shape} {img.array.dtype} {img.spacing}")
+        nii = os.path.join(tmp, "series.nii")
+        loader.write_image(image.MedicalImage(vol, spacing=(0.7, 0.7, 2.5)), nii)
+        nii_img = loader.load_input_image(nii)
+        want = inferer.apply(vol)
+        expect = {"bodymask_labels": 1, "avg_pool2": 24, "bilinear_up2": 24}
+        walls = {"dicom": [], "nifti": []}
+        for name in ("dicom", "nifti", "nifti", "dicom", "dicom", "nifti"):  # in turns
+            _reset_launches()
+            t0 = time.perf_counter()
+            mask = inferer.apply(img if name == "dicom" else nii_img)
+            walls[name].append(time.perf_counter() - t0)
+            launches = _launches()
+            self.check(launches == expect, f"launches {launches} from {name}, expected {expect}")
+            self.check(np.array_equal(mask, want), f"the mask from {name} differs from apply(array)")
+        print(f"[dicom] {len(vol)}-slice series: every apply launched {expect} and its mask equals "
+              f"apply(array)'s voxel for voxel, labels {sorted(int(v) for v in np.unique(want))}")
+        print("[dicom] apply s, in turns: " + " | ".join(
+            f"from {name} " + ", ".join(f"{t:.4f}" for t in ts) for name, ts in walls.items()))
+
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        for ext in (".nii.gz", ".dcm"):
+            out_dir = os.path.join(tmp, f"cli_dicom_{ext.strip('.').replace('.', '_')}")
+            os.makedirs(out_dir)
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "lungmask_tpu_torch", series,
+                 os.path.join(out_dir, "mask" + ext), "--modelpath", self.state["weights"],
+                 "--noprogress"],
+                capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
+            )
+            times[f"CLI series -> {ext}"] = time.perf_counter() - t0
+            self.check(res.returncode == 0, f"CLI to {ext} failed:\n{res.stderr[-4000:]}")
+            back = loader.load_input_image(out_dir if ext == ".dcm" else
+                                           os.path.join(out_dir, "mask" + ext),
+                                           disable_tqdm=True, read_metadata=True)
+            self.check(np.array_equal(back.array, want), f"the CLI's {ext} mask differs from apply")
+            if ext == ".dcm":
+                kept = {k: back.metadata.get(k) for k in KEPT_TAGS}
+                self.check(kept == KEPT_TAGS and back.metadata.get("0008|103e")
+                           == "Created with lungmask", f"kept tags {kept}")
+            print(f"[dicom] CLI SERIES_DIR -> mask{ext}: rc 0, read back equals apply"
+                  + (f", kept tags {sorted(KEPT_TAGS)} survive" if ext == ".dcm" else ""))
+
+        rle_dir = os.path.join(tmp, "series_rle")
+        os.makedirs(rle_dir)
+        t0 = time.perf_counter()
+        for z in range(RLE_SLICES):
+            dicom.write_slice(os.path.join(rle_dir, f"{z:04d}.dcm"), vol[z],
+                              series_uid="1.2.826.0.1.3680043.10.1464.3.2",
+                              position=(0.0, 0.0, 2.5 * z), spacing=(0.7, 0.7),
+                              slice_thickness=2.5, transfer_syntax=dicom.RLE_LOSSLESS)
+        times[f"RLE-encode {RLE_SLICES}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rle = loader.load_input_image(rle_dir, disable_tqdm=True)
+        times[f"scan+decode {RLE_SLICES} RLE"] = time.perf_counter() - t0
+        self.check(np.array_equal(rle.array, vol[:RLE_SLICES]), "the RLE series differs")
+        self.check(np.array_equal(inferer.apply(rle), inferer.apply(vol[:RLE_SLICES])),
+                   "the RLE series' mask differs from the uncompressed slices' mask")
+        print(f"[dicom] {RLE_SLICES}-slice RLE series: pixels and mask equal the uncompressed ones")
+        self._codecs(vol[len(vol) // 2])
+        print("[dicom] seconds: " + " | ".join(f"{k} {v:.4f}" for k, v in times.items())
+              + f" ({self.state['smi']})")
+
+    def _codecs(self, hu):
+        """One slice through each syntax the port encodes without Pillow or
+        CharLS, and the committed fixtures, decoded bit-exactly."""
+        import numpy as np
+
+        from lungmask_tpu_torch.io import dicom
+        from lungmask_tpu_torch.models.synthetic import codec_slice
+
+        u12 = np.clip(hu.astype(np.int32) + 1024, 0, 4095).astype(np.int16)
+        u8 = np.clip((hu.astype(np.int32) + 1024) // 8, 0, 255).astype(np.int16)
+        cases = [  # (name, syntax, stored pixels, rescale, expected HU, tolerance)
+            ("explicit LE", dicom.EXPLICIT_VR_LE, hu, 0.0, hu, 0),
+            ("deflated", dicom.DEFLATED_EXPLICIT_VR_LE, hu, 0.0, hu, 0),
+            ("big endian", dicom.EXPLICIT_VR_BE, hu, 0.0, hu, 0),
+            ("RLE", dicom.RLE_LOSSLESS, hu, 0.0, hu, 0),
+            ("JPEG-lossless SV1", dicom.JPEG_LOSSLESS_SV1, hu, 0.0, hu, 0),
+            (f"HTJ2K {HTJ2K_CROP}²", dicom.HTJ2K_LOSSLESS, hu[:HTJ2K_CROP, :HTJ2K_CROP], 0.0,
+             hu[:HTJ2K_CROP, :HTJ2K_CROP], 0),
+            ("DCT baseline 8-bit", dicom.JPEG_BASELINE, u8, 0.0, u8, DCT_TOLERANCE),
+            ("DCT extended 12-bit", dicom.JPEG_EXTENDED, u12, -1024.0, u12 - 1024, DCT_TOLERANCE),
+        ]
+        lines = []
+        for i, (name, syntax, stored, intercept, expect, tol) in enumerate(cases):
+            path = os.path.join(self.state["tmp"], f"codec{i}.dcm")
+            t0 = time.perf_counter()
+            dicom.write_slice(path, stored, transfer_syntax=syntax, rescale=(1.0, intercept))
+            t_enc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = dicom.read_file(path).pixels
+            t_dec = time.perf_counter() - t0
+            err = int(np.abs(got.astype(np.int32) - expect.astype(np.int32)).max())
+            lines.append(f"{name} {stored.shape[0]}² enc {t_enc:.4f} s dec {t_dec:.4f} s "
+                         f"max_abs_err {err}")
+            self.check(got.shape == expect.shape and err <= tol, f"{name}: max_abs_err {err}")
+        for name in sorted(os.listdir(os.path.join(REPO, FIXTURE_DIR))):
+            t0 = time.perf_counter()
+            got = dicom.read_file(os.path.join(REPO, FIXTURE_DIR, name))
+            t_dec = time.perf_counter() - t0
+            same = np.array_equal(got.pixels, codec_slice(FIXTURE_SEED))
+            lines.append(f"fixture {name} ({got.get('0002|0010')}) dec {t_dec:.4f} s "
+                         f"bit-exact {same}")
+            self.check(same, f"the fixture {name} decodes to other pixels")
+        for line in lines:
+            print(f"[dicom] codec {line}")
+
     def postdev(self):
         import numpy as np
 
@@ -725,14 +892,22 @@ class Smoke:
             paths.append(path)
         return paths
 
+    def _series_dir(self, stem):
+        from lungmask_tpu_torch.io import image
+
+        path = os.path.join(self.state["tmp"], stem)
+        _write_series(image.MedicalImage(self.state["phantom"][:SERIES_SLICES],
+                                         spacing=(0.7, 0.7, 2.5)), path)
+        return path
+
     def cohort(self):
         import numpy as np
 
         from lungmask_tpu_torch.io import loader
         from lungmask_tpu_torch.runtime.cohort import run_cohort
 
-        paths = self._write_volumes(COHORT_SLICES, "cohort")
-        chunks = sum(-(-n // CHUNK) for n in COHORT_SLICES)
+        paths = self._write_volumes(COHORT_SLICES, "cohort") + [self._series_dir("cohort_series")]
+        chunks = sum(-(-n // CHUNK) for n in COHORT_SLICES + (SERIES_SLICES,))
         want = {"bodymask_labels": len(paths), "avg_pool2": 4 * chunks, "bilinear_up2": 4 * chunks}
         for mode, inferer in (("exact", self.state["inferer"]),
                               ("device", self.state["dev_inferer"])):
@@ -743,7 +918,7 @@ class Smoke:
             launches = _launches()
             errors = [r.error for r in stats.results if r.error]
             print(f"[cohort] {mode}: {len(paths)} volumes ({'+'.join(map(str, COHORT_SLICES))} "
-                  f"slices of 512²) in {stats.wall_seconds:.4f} s = "
+                  f"NIfTI + {SERIES_SLICES} DICOM slices of 512²) in {stats.wall_seconds:.4f} s = "
                   f"{stats.volumes_per_hour:.1f} volumes/h | stage s {stats.stage_seconds} | "
                   f"launches {launches}")
             self.check(not errors and len(stats.results) == len(paths), f"errors {errors}")
@@ -766,10 +941,17 @@ class Smoke:
 
         inferer = self.state["inferer"]
         paths = self._write_volumes(SERVE_SLICES, "serve")
-        uploads = []
+        uploads = []  # (query, body)
         for path in paths:
             with open(path, "rb") as fh:
-                uploads.append(fh.read())
+                uploads.append(("name=v.nii&out=.nii.gz", fh.read()))
+        series = self._series_dir("serve_series")
+        buf = io.BytesIO()
+        with zipfile.ZipFile(buf, "w") as zf:
+            for leaf in sorted(os.listdir(series)):
+                zf.write(os.path.join(series, leaf), f"DICOM/{leaf}")
+        uploads.append(("name=series.zip&out=.dcm", buf.getvalue()))
+        paths.append(series)
         httpd, service = make_server(inferer, port=0)
         thread = threading.Thread(target=httpd.serve_forever, daemon=True)
         thread.start()
@@ -789,12 +971,11 @@ class Smoke:
                         if not todo:
                             return
                         i = todo.pop(0)
-                    req = urllib.request.Request(
-                        base + "/v1/segment?name=v.nii&out=.nii.gz", data=uploads[i],
-                        method="POST",
-                    )
+                    query, body = uploads[i]
+                    req = urllib.request.Request(base + "/v1/segment?" + query, data=body,
+                                                 method="POST")
                     with urllib.request.urlopen(req, timeout=300) as r:
-                        results[i] = (r.status, r.read())
+                        results[i] = (r.status, r.read(), r.headers.get("Content-Type"))
 
             _reset_launches()
             t0 = time.perf_counter()
@@ -810,15 +991,22 @@ class Smoke:
             httpd.server_close()
             thread.join()
         metrics = service.metrics()
-        print(f"[serve] {len(uploads)} uploads from 2 clients in {wall:.4f} s = "
+        print(f"[serve] {len(uploads)} uploads ({len(paths) - 1} NIfTI, one zipped "
+              f"{SERIES_SLICES}-slice DICOM series answered as .dcm) from 2 clients in {wall:.4f} s = "
               f"{3600 * len(uploads) / wall:.1f} volumes/h | launches {launches} | service "
               f"s: " + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()
                                 if k.endswith("seconds")))
         self.check(all(r is not None and r[0] == 200 for r in results), "a request failed")
         self.check(all(v > 0 for v in launches.values()), f"launches {launches}")
-        for (status, body), path in zip(results, paths):
-            got = loader.load_input_bytes(bytearray(body), "m.nii.gz").array
-            ref = inferer.apply(loader.load_input_image(path))
+        for (status, body, ctype), path in zip(results, paths):
+            if ctype == "application/zip":  # the .dcm answer: a zipped series
+                out = os.path.join(self.state["tmp"], "serve_dcm")
+                with zipfile.ZipFile(io.BytesIO(body)) as zf:
+                    zf.extractall(out)
+                got = loader.load_input_image(out, disable_tqdm=True).array
+            else:
+                got = loader.load_input_bytes(bytearray(body), "m.nii.gz").array
+            ref = inferer.apply(loader.load_input_image(path, disable_tqdm=True))
             self.check(np.array_equal(got, ref), f"the response for {path} differs from apply")
         print("[serve] every response equals apply's")
 
@@ -841,12 +1029,13 @@ def main() -> int:
             "fused": {"phantom": "kernel"},
             "inferer": {"phantom": "kernel", "params": "unet"},
             "cli": {"phantom": "kernel", "params": "unet", "inferer": "inferer"},
+            "dicom": {"phantom": "kernel", "inferer": "inferer", "smi": "device"},
             "postdev": {"phantom": "kernel", "inferer": "inferer", "fused_mask": "fused"},
             "cohort": {"phantom": "kernel", "inferer": "inferer", "dev_inferer": "postdev"},
             "serve": {"phantom": "kernel", "inferer": "inferer"},
         }
         for name in ("device", "build", "kernel", "unet", "stencil", "fused", "inferer", "cli",
-                     "postdev", "cohort", "serve"):
+                     "dicom", "postdev", "cohort", "serve"):
             missing = [(key, maker) for key, maker in needs.get(name, {}).items()
                        if key not in smoke.state]
             if missing:

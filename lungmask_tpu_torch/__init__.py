@@ -6,9 +6,11 @@ module paths and public names, imports ``torch`` and never ``jax`` or
 tensor code in PyTorch, the TPU's Pallas kernels rewritten by hand in CUDA
 C++ (``csrc/``). Public surface: ``LMInferer`` (+ the deprecated ``apply``
 and ``apply_fused``), the ``lungmask-torch`` CLI (``python -m
-lungmask_tpu_torch``; one volume, ``--cohort``, ``--serve``, ``--warmup``),
-``runtime.cohort.run_cohort``, ``runtime.serve.make_server`` and
-``metrics.compare_masks``.
+lungmask_tpu_torch``; one volume, ``--cohort``, ``--serve``, ``--warmup``,
+``--noHU``), ``io.load_input_image`` / ``io.write_image`` (DICOM series and
+every file format of the JAX package), ``compat`` (the reference's
+module-level names), ``runtime.cohort.run_cohort``,
+``runtime.serve.make_server`` and ``metrics.compare_masks``.
 """
 
 __version__ = "0.1.0"

@@ -5,11 +5,16 @@ The reference's flags (lungmask/__main__.py:20-144): positional input and
 output, ``--modelname`` (``LTRCLobes_R231`` is the fused two-model mode,
 both models from the registry), ``--modelpath``, ``--cpu`` (forces batch
 size 1), ``--nopostprocess``, ``--batchsize``, ``--noprogress``,
-``--version``, ``--removemetadata``. The JAX package's extensions:
-``--postprocessing {exact,device}``, ``--cohort`` (a directory of volumes
-through the overlapped cohort pipeline), ``--serve [HOST:]PORT`` (the HTTP
-lane) and ``--warmup [N_SLICES]``. The port reads and writes NIfTI; DICOM,
-the other formats and ``--noHU`` are ROADMAP.md queue 1, item 2.
+``--version``, ``--removemetadata``. INPUT is an image file (NIfTI,
+MetaImage, NRRD, Analyze, VTK, GIPL, raster or one DICOM file) or a
+directory scanned for DICOM series (the largest wins); OUTPUT takes the same
+formats, and one ending in ``.dcm`` is written as a DICOM series
+(``stem_0000.dcm`` ...) carrying the input's keep-listed tags and the
+reference's marker tags. The JAX package's extensions: ``--noHU`` (8-bit
+image stacks mapped to pseudo-HU), ``--postprocessing {exact,device}``,
+``--cohort`` (a directory of volumes through the overlapped cohort
+pipeline), ``--serve [HOST:]PORT`` (the HTTP lane) and ``--warmup
+[N_SLICES]``.
 """
 
 from __future__ import annotations
@@ -37,12 +42,13 @@ def main(argv=None) -> None:
     )
     parser.add_argument(
         "input", metavar="input", type=path, nargs="?", default=None,
-        help="CT volume to segment (.nii or .nii.gz); with --cohort a directory of them",
+        help="CT volume to segment: a single image file, or a directory that will be "
+        "scanned recursively for a DICOM series; with --cohort a directory of volumes",
     )
     parser.add_argument(
         "output", metavar="output", type=str, nargs="?", default=None,
-        help="where to write the resulting label volume (.nii or .nii.gz); "
-        "with --cohort a directory",
+        help="where to write the resulting label volume (its extension picks the format; "
+        ".dcm writes a DICOM series); with --cohort a directory",
     )
     parser.add_argument(
         "--warmup",
@@ -101,6 +107,13 @@ def main(argv=None) -> None:
         "them over; only meaningful for metadata-capable formats like DICOM",
     )
     parser.add_argument(
+        "--noHU",
+        action="store_true",
+        help="For processing of 8-bit image stacks (e.g. jpg/png slices) that are not in "
+        "Hounsfield units: intensities are mapped to the model's HU window. Implies "
+        "--removemetadata.",
+    )
+    parser.add_argument(
         "--postprocessing",
         choices=["exact", "device"],
         default="exact",
@@ -112,7 +125,8 @@ def main(argv=None) -> None:
     parser.add_argument(
         "--cohort",
         action="store_true",
-        help="batch mode: INPUT is a directory of volumes; masks are streamed to "
+        help="batch mode: INPUT is a directory whose entries are volumes (image files, "
+        "or subdirectories holding one DICOM series each); masks are streamed to "
         "OUTPUT/<name>_mask.nii.gz through the overlapped decode/compute/"
         "postprocess pipeline (lungmask_tpu_torch.runtime.cohort)",
     )
@@ -152,15 +166,27 @@ def main(argv=None) -> None:
     if args.input is None or args.output is None:
         parser.error("input and output are required (or pass --warmup/--serve)")
     if args.cohort:
+        if args.noHU:
+            parser.error("--cohort does not support --noHU stacks")
         _cohort(args, batchsize)
         return
 
-    keepmetadata = not args.removemetadata
+    # Patient and study tags are kept by default; dropped by flag or for
+    # non-HU data (no DICOM source).
+    keepmetadata = not args.removemetadata and not args.noHU
 
     logger.info("Load model")
-    input_image = loader.load_input_image(
-        args.input, disable_tqdm=args.noprogress, read_metadata=keepmetadata
-    )
+    if args.noHU:
+        from lungmask_tpu_torch.io import nohu
+
+        if os.path.isdir(args.input):
+            input_image = nohu.load_image_directory(args.input)
+        else:
+            input_image = nohu.load_image_stack([args.input])
+    else:
+        input_image = loader.load_input_image(
+            args.input, disable_tqdm=args.noprogress, read_metadata=keepmetadata
+        )
 
     logger.info("Infer lungmask")
     inferer = _build_inferer(args, batchsize)
@@ -195,11 +221,17 @@ def _build_inferer(args, batchsize: int) -> LMInferer:
     return LMInferer(modelname=args.modelname, modelpath=args.modelpath, **common)
 
 
+_COHORT_EXTS = (
+    ".dcm", ".nii", ".nii.gz", ".mha", ".mhd", ".nrrd", ".nhdr",
+    ".hdr", ".img", ".vtk", ".gipl", ".gipl.gz",
+)
+
+
 def _cohort(args, batchsize) -> None:
-    """Batch mode: each NIfTI file (and each subdirectory, which fails its
-    volume until DICOM is ported) of INPUT streams through
-    ``runtime.cohort``; masks land in OUTPUT. Failures are per volume
-    (logged, recorded), not fatal."""
+    """Batch mode: each entry of INPUT (subdirectory = one DICOM series,
+    file = one volume) streams through ``runtime.cohort``; masks land in
+    OUTPUT. Failures are per volume (logged, recorded), not fatal: a corrupt
+    series must not abort an overnight run."""
     from lungmask_tpu_torch.runtime.cohort import run_cohort
 
     if not os.path.isdir(args.input):
@@ -207,7 +239,7 @@ def _cohort(args, batchsize) -> None:
     sources = []
     for entry in sorted(os.listdir(args.input)):
         p = os.path.join(args.input, entry)
-        if os.path.isdir(p) or entry.lower().endswith((".nii", ".nii.gz")):
+        if os.path.isdir(p) or entry.lower().endswith(_COHORT_EXTS):
             sources.append(p)
     if not sources:
         sys.exit(f"No volumes found in {args.input}")

@@ -262,3 +262,12 @@ def bodymask_edge_slices() -> np.ndarray:
     b[40:88, 40:88] = 40
     b[56:72, 56:72] = -1000  # a cavity
     return out
+
+
+def codec_slice(seed: int, size: int = 64) -> np.ndarray:
+    """One int16 CT slice for codec fixtures (size², seeded): the phantom's
+    single slice at ``size``² plus uniform noise in [−200, 200) HU drawn from
+    ``seed``, so every encoder sees edges and busy texture."""
+    rng = np.random.default_rng(seed)
+    noise = rng.integers(-200, 200, size=(size, size)).astype(np.int16)
+    return lung_phantom(1, size=size)[0] + noise

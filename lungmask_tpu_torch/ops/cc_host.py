@@ -200,3 +200,18 @@ def area_closing_binary(mask2d: np.ndarray, area_threshold: int = 64) -> np.ndar
     small = np.zeros(n + 1, dtype=bool)
     small[1:] = areas[1:] < area_threshold
     return mask2d.astype(bool) | small[lab]
+
+
+def bbox_nd(mask: np.ndarray, margin: int = 2) -> np.ndarray:
+    """Margin-padded bounding box, clamped — reference ``bbox_3D``
+    (lungmask/utils.py:361-387). Returns [min0, max0, min1, max1, ...]
+    half-open."""
+    out = []
+    for dim in range(mask.ndim):
+        axes = tuple(d for d in range(mask.ndim) if d != dim)
+        any_along = np.any(mask, axis=axes)
+        nz = np.where(any_along)[0]
+        bmin, bmax = int(nz[0]), int(nz[-1])
+        out.append(max(bmin - margin, 0))
+        out.append(min(bmax + margin + 1, mask.shape[dim]))
+    return np.asarray(out)

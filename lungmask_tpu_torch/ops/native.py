@@ -28,8 +28,8 @@ _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC = os.path.join(os.path.dirname(_PKG), "csrc")
-_SRCS = [os.path.join(_CSRC, name) for name in ("postproc.cpp", "preproc.cpp")]
+CSRC_DIR = os.path.join(os.path.dirname(_PKG), "csrc")
+_SRCS = [os.path.join(CSRC_DIR, name) for name in ("postproc.cpp", "preproc.cpp")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 _OUT = os.path.join(BUILD_DIR, "libpostproc.so")
 

@@ -6,7 +6,7 @@ The reference processes volumes strictly one after another (its CLI handles
 one volume per invocation). This runtime pipelines a cohort through three
 overlapping stages:
 
-  [loader thread]   NIfTI decode + preprocessing/upload       (host I/O + device)
+  [loader thread]   file/DICOM decode + preprocessing/upload  (host I/O + device)
   [main thread]     U-Net forward                             (device)
   [finisher thread] postprocessing + paste + output write     (host, or device
                                                                in device mode)
@@ -86,8 +86,9 @@ def run_cohort(
     """Stream a cohort of volumes through the inferer.
 
     Args:
-        sources: NIfTI paths, arrays, or MedicalImages (a DICOM directory
-            fails its volume: DICOM is ROADMAP.md queue 1, item 2).
+        sources: paths (image files or DICOM series directories), arrays,
+            or MedicalImages. A directory without DICOM fails its volume
+            ("No dicoms found!") and the cohort goes on.
         inferer: an ``LMInferer``.
         output_dir: when set, masks are written as ``<name>_mask.nii.gz``.
             Names derive from the source basename, de-duplicated with an
@@ -155,8 +156,9 @@ def run_cohort(
                     waits["load_busy"] += time.perf_counter() - t0
                     _timed_put(in_q, (name_of(i, src), img, pre, None),
                                "load_wait")
-                # SystemExit included, as in the JAX runtime, whose loader
-                # sys.exit()s on empty DICOM dirs: here it skips the volume.
+                # SystemExit included: load_input_image sys.exit()s on a
+                # directory without DICOM (reference semantics); here that
+                # skips the volume.
                 except (Exception, SystemExit) as e:
                     # Time burned before the failure is still loader work —
                     # without it, a cohort of failing volumes reports an

@@ -23,12 +23,14 @@ Endpoints:
 ``GET /metrics``
     JSON counters: requests, errors, volumes segmented, per-stage seconds.
 ``POST /v1/segment?name=<filename>&out=<ext>``
-    Body is the volume file's bytes, NIfTI (``.nii`` / ``.nii.gz``; ``name``
-    defaults to ``volume.nii.gz``). ``out`` selects the response format
-    (default ``.nii.gz``). The response body is the mask file's bytes. A
-    zipped DICOM series upload, ``out=.dcm`` and the other formats answer
-    501: they wait for the port's DICOM and format readers (ROADMAP.md
-    queue 1, item 2).
+    Body is the volume file's bytes. ``name`` names the upload (its
+    extension selects the reader; defaults to ``volume.nii.gz``); a ``.zip``
+    upload is unpacked and scanned as a DICOM series directory. ``out``
+    selects the response format (default ``.nii.gz``); ``out=.dcm`` returns
+    a zip of the output DICOM series. The response body is the mask file's
+    bytes. A zip that holds no DICOM series is a client error (400), where
+    the JAX lane lets the loader's ``SystemExit`` end the request thread
+    without a reply.
 """
 
 from __future__ import annotations
@@ -40,17 +42,16 @@ import shutil
 import tempfile
 import threading
 import time
+import zipfile
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from lungmask_tpu_torch.logger import logger
 
-# Single-file response formats of the JAX lane; the port writes the NIfTI
-# ones and answers 501 for the rest.
+# Single-file response formats (pair-writing formats like .mhd/.nhdr/.hdr
+# would drop their data half; .dcm is special-cased to a zipped series).
 _SINGLE_FILE_OUT = (".nii", ".nii.gz", ".mha", ".nrrd", ".gipl", ".vtk")
-
-_NOT_PORTED = "{what} needs the port's DICOM and format readers (ROADMAP.md queue 1, item 2)"
 
 
 def _free_ram() -> int:
@@ -138,10 +139,9 @@ class InferenceService:
 
         ``stream`` is read for exactly ``length`` bytes, either into memory
         (NIfTI, when ~3× the upload fits in free RAM beside what other
-        requests reserved) or into a scratch file (the spool lane). Raises
-        ``ValueError`` for client errors (bad format, extension or bytes)
-        and ``NotImplementedError`` for what the port cannot read or write
-        yet.
+        requests reserved) or into a scratch file (the spool lane, which a
+        zipped series always takes). Raises ``ValueError`` for client errors
+        (bad format, extension or bytes, a zip without DICOM).
         """
         from lungmask_tpu_torch.io import loader
 
@@ -151,10 +151,6 @@ class InferenceService:
                 f"out={out_ext!r} unsupported (supported: {', '.join(_SINGLE_FILE_OUT)}, .dcm)"
             )
         safe = _safe_name(name)
-        if out_ext == ".dcm":
-            raise NotImplementedError(_NOT_PORTED.format(what="a DICOM series response"))
-        if safe.lower().endswith(".zip"):
-            raise NotImplementedError(_NOT_PORTED.format(what="a zipped DICOM series upload"))
         t0 = time.monotonic()
         spool = _spool_dir()
         need = length * 3
@@ -202,7 +198,7 @@ class InferenceService:
             self._count("encode_seconds", time.monotonic() - t4)
             self._count("volumes_segmented")
             self._count("busy_seconds", time.monotonic() - t0)
-            return payload, "application/octet-stream"
+            return payload, "application/zip" if out_ext == ".dcm" else "application/octet-stream"
         finally:
             if tmp is not None:
                 shutil.rmtree(tmp, ignore_errors=True)
@@ -214,12 +210,13 @@ class InferenceService:
     def _decode(read, name: str):
         """Run a decoder; malformed upload bytes surface as format-specific
         errors (BadGzipFile, struct truncations, ...), which are client
-        errors, not server faults."""
+        errors, not server faults. So does the loader's ``SystemExit`` for a
+        directory without DICOM: it must not end the request thread."""
         try:
             return read()
-        except (ValueError, NotImplementedError):
+        except ValueError:
             raise
-        except (OSError, EOFError, KeyError, IndexError) as e:
+        except (OSError, EOFError, KeyError, IndexError, SystemExit) as e:
             raise ValueError(f"could not decode {name!r}: {e}") from e
 
     def _slurp(self, stream, length: int) -> bytearray:
@@ -243,9 +240,11 @@ class InferenceService:
         return buf
 
     def _materialize(self, stream, length: int, name: str, tmp: str) -> str:
-        """Spool the upload into ``tmp``; returns the path to load.
-        ``name`` must already be sanitized (:func:`_safe_name`)."""
-        upload = os.path.join(tmp, name)
+        """Spool the upload into ``tmp``; returns the path to load (a zip is
+        unpacked into a series directory). ``name`` must already be
+        sanitized (:func:`_safe_name`)."""
+        is_zip = name.lower().endswith(".zip")
+        upload = os.path.join(tmp, "upload.bin" if is_zip else name)
         remaining = length
         with open(upload, "wb") as f:
             while remaining > 0:
@@ -255,11 +254,53 @@ class InferenceService:
                     raise ValueError(f"truncated upload ({length - remaining} of {length} bytes)")
                 f.write(chunk)
                 remaining -= len(chunk)
-        return upload
+        if not is_zip:
+            return upload
+        series_dir = os.path.join(tmp, "series")
+        os.makedirs(series_dir)
+        try:
+            with zipfile.ZipFile(upload) as zf:
+                members = [
+                    (i, info, os.path.basename(info.filename))
+                    for i, info in enumerate(zf.infolist())
+                    if os.path.basename(info.filename) and not info.is_dir()
+                ]
+                # A zip bomb is admitted on its compressed length: bound what
+                # it unpacks to (the declared sizes, which zipfile never reads
+                # past) by the upload cap and by the spool's free disk.
+                total = sum(info.file_size for _, info, _ in members)
+                room = shutil.disk_usage(series_dir).free
+                if total > min(self.max_upload_bytes, room):
+                    raise ValueError(
+                        f"zip upload unpacks to {total} bytes, above the limit "
+                        f"of {min(self.max_upload_bytes, room)}"
+                    )
+                for i, info, leaf in members:
+                    # Flatten and sanitize: member paths from the client are
+                    # untrusted and must not escape the scratch dir. The
+                    # index prefix keeps same-named leaves of different
+                    # archive folders apart (the DICOM scan keys slices by
+                    # UID and position, not by name).
+                    with zf.open(info) as f, open(
+                        os.path.join(series_dir, f"{i:05d}_{leaf}"), "wb"
+                    ) as o:
+                        shutil.copyfileobj(f, o)
+        except zipfile.BadZipFile as e:
+            raise ValueError(f"bad zip upload: {e}") from e
+        return series_dir
 
     def _encode(self, result, out_ext: str, tmp: str) -> bytes:
         from lungmask_tpu_torch.io import loader
 
+        if out_ext == ".dcm":
+            out_dir = os.path.join(tmp, "out")
+            os.makedirs(out_dir)
+            loader.write_dicom_series(result, os.path.join(out_dir, "mask.dcm"))
+            buf = io.BytesIO()
+            with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+                for leaf in sorted(os.listdir(out_dir)):
+                    zf.write(os.path.join(out_dir, leaf), leaf)
+            return buf.getvalue()
         out_path = os.path.join(tmp, "mask" + out_ext)
         loader.write_image(result, out_path)
         with open(out_path, "rb") as f:
@@ -361,10 +402,6 @@ def _make_handler(service: InferenceService):
                 service._count("errors")
                 logger.info(f"serve: rejected request: {e}")
                 self._reply_json(400, {"error": str(e)})
-            except NotImplementedError as e:
-                service._count("errors")
-                logger.info(f"serve: not implemented: {e}")
-                self._reply_json(501, {"error": str(e)})
             except Exception as e:  # noqa: BLE001 — a request must never kill the server
                 service._count("errors")
                 logger.warning(f"serve: internal error: {e!r}")

@@ -15,7 +15,7 @@ import torch_parity  # noqa: F401  (one torch thread per worker)
 import lungmask_tpu
 from lungmask_tpu.runtime.cohort import run_cohort as jax_run_cohort
 from lungmask_tpu_torch import LMInferer, cli
-from lungmask_tpu_torch.io import nifti
+from lungmask_tpu_torch.io import dicom, loader, nifti
 from lungmask_tpu_torch.io.image import MedicalImage
 from lungmask_tpu_torch.models import convert, synthetic
 from lungmask_tpu_torch.runtime.cohort import run_cohort
@@ -83,15 +83,64 @@ def test_cohort_arrays_in_order(inferer):
 
 
 def test_cohort_skips_bad_volume(inferer, tmp_path):
+    """A missing file and a directory without DICOM fail their volumes ("No
+    dicoms found"); a DICOM series directory beside them segments."""
     bad = str(tmp_path / "missing.nii.gz")
-    dicom_dir = tmp_path / "series"
-    dicom_dir.mkdir()
-    stats = run_cohort([_vol(0), bad, str(dicom_dir)], inferer, keep_masks=True)
-    assert len(stats.results) == 3
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    (empty / "notes.txt").write_text("no dicom here")
+    series = tmp_path / "series"
+    series.mkdir()
+    _write_series(series, _vol(4))
+    stats = run_cohort([_vol(0), bad, str(empty), str(series)], inferer, keep_masks=True)
+    assert len(stats.results) == 4
     errs = [r for r in stats.results if r.error is not None]
-    assert [r.name for r in errs] == ["missing", "series"]
-    assert "item 2" in errs[1].error  # DICOM is not ported yet
+    assert [r.name for r in errs] == ["missing", "empty"]
+    assert "No dicoms found" in errs[1].error
     assert stats.results[0].mask is not None
+    np.testing.assert_array_equal(
+        stats.results[3].mask, inferer.apply(loader.load_input_image(str(series))))
+
+
+def _write_series(root, vol, spacing=(0.7, 0.8), thickness=2.5):
+    for z, sl in enumerate(vol):
+        dicom.write_slice(str(root / f"{z:03d}.dcm"), sl, series_uid=f"1.2.826.{root.name}",
+                          study_uid="1.2.826.7", position=(0.0, 0.0, thickness * z),
+                          spacing=spacing, slice_thickness=thickness)
+
+
+@pytest.mark.parametrize("mode", ["exact", "device"])
+def test_cohort_dicom_dirs_equal_jax(weights, inferer, tmp_path, mode):
+    """Per-patient DICOM directories (all named DICOM, as exports often
+    are) beside a NIfTI file: the same masks and mask names as JAX's
+    cohort, and each mask equal to ``apply``'s."""
+    port = inferer if mode == "exact" else LMInferer(
+        modelpath=weights, device="cpu", postprocessing_mode=mode, **F32
+    )
+    sources = []
+    for i, hw in enumerate((64, 160)):
+        d = tmp_path / f"patient{i}" / "DICOM"
+        d.mkdir(parents=True)
+        _write_series(d, _vol(i, hw=hw))
+        sources.append(str(d))
+    sources.append(str(tmp_path / "CT.nii.gz"))
+    nifti.write(MedicalImage(_vol(5), spacing=(0.7, 0.8, 2.5)), sources[-1])
+    out, jout = tmp_path / "out", tmp_path / "jout"
+    out.mkdir()
+    jout.mkdir()
+    stats = run_cohort(sources, port, output_dir=str(out), keep_masks=True)
+    want = jax_run_cohort(
+        sources, lungmask_tpu.LMInferer(modelpath=weights, postprocessing_mode=mode, **F32),
+        output_dir=str(jout), keep_masks=True,
+    )
+    assert [r.error for r in stats.results] == [None] * 3
+    assert [r.name for r in stats.results] == [r.name for r in want.results] == [
+        "DICOM", "DICOM_0001", "CT"]
+    assert sorted(os.listdir(out)) == sorted(os.listdir(jout))
+    for r, w, src in zip(stats.results, want.results, sources):
+        np.testing.assert_array_equal(r.mask, w.mask)
+        np.testing.assert_array_equal(r.mask, port.apply(loader.load_input_image(src)))
+        np.testing.assert_array_equal(nifti.read(str(out / f"{r.name}_mask.nii.gz")).array, r.mask)
 
 
 def test_cohort_on_result_exception_does_not_hang(inferer):
@@ -137,13 +186,16 @@ def test_cohort_failing_source_iterator(inferer):
 def test_cli_cohort(weights, inferer, tmp_path):
     src = tmp_path / "in"
     src.mkdir()
-    vols = {f"v{i}": _vol(i) for i in range(2)}
-    for name, v in vols.items():
-        nifti.write(MedicalImage(v), str(src / f"{name}.nii"))
+    vols = {f"v{i}": _vol(i) for i in range(4)}
+    for name in ("v0", "v1"):
+        nifti.write(MedicalImage(vols[name]), str(src / f"{name}.nii"))
+    (src / "v2").mkdir()
+    _write_series(src / "v2", vols["v2"])
+    loader.write_image(MedicalImage(vols["v3"]), str(src / "v3.mha"))
     (src / "notes.txt").write_text("not a volume")
     out = tmp_path / "out"
     cli.main([str(src), str(out), "--cohort", "--modelpath", weights, "--cpu", "--noprogress"])
-    assert sorted(os.listdir(out)) == ["v0_mask.nii.gz", "v1_mask.nii.gz"]
+    assert sorted(os.listdir(out)) == [f"v{i}_mask.nii.gz" for i in range(4)]
     for name, v in vols.items():
         got = nifti.read(str(out / f"{name}_mask.nii.gz")).array
         np.testing.assert_array_equal(got, inferer.apply(v))

@@ -1,7 +1,8 @@
-"""The port runs where neither JAX nor the JAX package nor tqdm exists.
+"""The port runs where neither JAX nor the JAX package nor tqdm nor Pillow
+exists.
 
 Each check runs in a fresh interpreter in which ``import jax``,
-``import lungmask_tpu`` and ``import tqdm`` raise ImportError
+``import lungmask_tpu``, ``import tqdm`` and ``import PIL`` raise ImportError
 (``sys.modules[name] = None``), as on the GPU machine.
 """
 
@@ -14,7 +15,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCK = (
     "import sys\n"
-    "for name in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm'):\n"
+    "for name in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm', 'PIL'):\n"
     "    sys.modules[name] = None\n"
 )
 
@@ -30,6 +31,9 @@ def _run(code: str) -> subprocess.CompletedProcess:
 def test_port_imports_without_jax_or_tqdm():
     res = _run(
         "import lungmask_tpu_torch, lungmask_tpu_torch.cli, lungmask_tpu_torch.inferer\n"
+        "import lungmask_tpu_torch.compat, lungmask_tpu_torch.io\n"
+        "from lungmask_tpu_torch.io import analyze, codecs, dicom, gipl, htj2k, htj2k_stream\n"
+        "from lungmask_tpu_torch.io import loader, mha, nifti, nohu, nrrd, vtk\n"
         "import lungmask_tpu_torch.transforms.postprocess\n"
         "import lungmask_tpu_torch.transforms.postprocess_device\n"
         "import lungmask_tpu_torch.transforms.host_pipeline\n"
@@ -37,7 +41,7 @@ def test_port_imports_without_jax_or_tqdm():
         "import lungmask_tpu_torch.metrics\n"
         "import lungmask_tpu_torch.ops.kernels.bodymask\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
-        "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm'))\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm', 'PIL'))\n"
         "assert not bad, bad\n"
         "print('ok', lungmask_tpu_torch.__version__)\n"
     )
@@ -54,3 +58,22 @@ def test_cli_entry_point_without_jax(flag):
     )
     assert res.returncode == 0, res.stderr
     assert ("--modelpath" in res.stdout) if flag == "--help" else ("0.1.0" in res.stdout)
+
+
+def test_dicom_series_without_jax_tqdm_or_pillow(tmp_path):
+    """A DICOM series written, scanned and read back (the scan's progress
+    bar without tqdm), and an HTJ2K frame encoded and decoded, with the
+    machine's missing packages blocked."""
+    res = _run(
+        "import numpy as np\n"
+        "from lungmask_tpu_torch.io import codecs, image, loader\n"
+        "vol = np.arange(3 * 16 * 16, dtype=np.int16).reshape(3, 16, 16) - 400\n"
+        f"out = {str(tmp_path / 'mask.dcm')!r}\n"
+        "loader.write_image(image.MedicalImage(vol, spacing=(0.7, 0.7, 2.5)), out)\n"
+        "back = loader.load_input_image(out.rsplit('/', 1)[0])\n"
+        "assert np.array_equal(back.array, vol) and back.spacing == (0.7, 0.7, 2.5)\n"
+        "assert np.array_equal(codecs.j2k_decode(codecs.htj2k_encode(vol[0])), vol[0])\n"
+        "print('ok')\n"
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")

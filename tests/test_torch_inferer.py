@@ -139,11 +139,21 @@ def test_hu_capable_promotion_equals_jax(dtype):
     assert got.dtype == lungmask_tpu.LMInferer._hu_capable(arr).dtype
 
 
-def test_loader_is_nifti_only(tmp_path):
+def test_loader_is_nifti_only(tmp_path, phantom):
+    """The loader is no longer NIfTI only: a MetaImage written by the JAX
+    package loads to the same image in both, and an unknown output
+    extension raises ValueError in both without writing a file."""
+    from lungmask_tpu.io import image as jimage
+    from lungmask_tpu.io import loader as jloader
+
     path = str(tmp_path / "x.mha")
-    open(path, "wb").close()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        loader.load_input_image(path)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        loader.write_image(image.MedicalImage(np.zeros((1, 2, 2), np.uint8)), path)
-    assert os.path.getsize(path) == 0
+    jloader.write_image(jimage.MedicalImage(phantom, spacing=(0.7, 0.8, 2.5)), path)
+    got, want = loader.load_input_image(path), jloader.load_input_image(path)
+    np.testing.assert_array_equal(got.array, want.array)
+    assert got.spacing == want.spacing == (0.7, 0.8, 2.5)
+    np.testing.assert_array_equal(got.direction, want.direction)
+    bad = str(tmp_path / "x.xyz")
+    for load_mod, img_mod in ((loader, image), (jloader, jimage)):
+        with pytest.raises(ValueError, match="unsupported output format"):
+            load_mod.write_image(img_mod.MedicalImage(np.zeros((1, 2, 2), np.uint8)), bad)
+    assert not os.path.exists(bad)

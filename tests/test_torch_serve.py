@@ -1,7 +1,7 @@
 """The port's HTTP serving lane: routes, NIfTI round trips equal to
 ``apply`` and to the JAX service, concurrent requests, the in-memory lane
-against the spool lane, client errors, and the clear 501 for what waits for
-the DICOM and format readers (ROADMAP.md queue 1, item 2).
+against the spool lane, zipped DICOM series uploads, ``.dcm`` and the other
+response formats, and client errors.
 
 Tolerance: none — masks are compared voxel for voxel (decoded, since the
 gzip header of a .nii.gz embeds a timestamp).
@@ -21,7 +21,7 @@ import torch_parity  # noqa: F401  (one torch thread per worker)
 import lungmask_tpu
 from lungmask_tpu.runtime.serve import InferenceService as JaxService
 from lungmask_tpu_torch import LMInferer, cli
-from lungmask_tpu_torch.io import loader
+from lungmask_tpu_torch.io import dicom, loader
 from lungmask_tpu_torch.io.image import MedicalImage
 from lungmask_tpu_torch.models import convert, synthetic
 from lungmask_tpu_torch.runtime import serve
@@ -150,22 +150,83 @@ def test_memory_lane_matches_spool_lane(server, tmp_path, monkeypatch):
         np.testing.assert_array_equal(masks[("memory", ext)], masks[("spool", ext)])
 
 
-def test_dicom_and_other_formats_answer_501(server, tmp_path):
-    """What waits for item 2 answers a clear 501, never a 500 or a hang."""
-    base, service = server
-    before = service.metrics()["errors"]
+def _series_zip(vol, tmp_path):
+    """A zipped DICOM series whose slices sit in two archive folders under
+    clashing leaf names (the lane flattens and renames them)."""
     buf = io.BytesIO()
     with zipfile.ZipFile(buf, "w") as zf:
-        zf.writestr("0.dcm", b"DICM")
-    status, body, _ = _post(base + "/v1/segment?name=series.zip", buf.getvalue())
-    assert status == 501 and b"item 2" in body
-    status, body, _ = _post(base + "/v1/segment?name=v.nii.gz&out=.dcm", _nii_bytes(_vol()))
-    assert status == 501 and b"item 2" in body
-    status, body, _ = _post(base + "/v1/segment?name=v.mha", b"ObjectType = Image\n")
-    assert status == 501 and b"item 2" in body
-    status, body, _ = _post(base + "/v1/segment?name=v.nii.gz&out=.mha", _nii_bytes(_vol()))
-    assert status == 501 and b"item 2" in body
-    assert service.metrics()["errors"] == before + 4
+        for z, sl in enumerate(vol):
+            path = str(tmp_path / f"slice{z}.dcm")
+            dicom.write_slice(path, sl, series_uid="1.2.826.9.2", study_uid="1.2.826.9.1",
+                              position=(0.0, 0.0, 2.5 * z), spacing=(0.7, 0.7),
+                              slice_thickness=2.5)
+            zf.write(path, f"../part{z % 2}/IM{z // 2:04d}")
+        zf.writestr("part0/", b"")
+    return buf.getvalue()
+
+
+def test_dicom_and_other_formats_answer_501(server, weights, tmp_path):
+    """What answered 501 before the DICOM and format readers were ported is
+    served now: a zipped series upload (200, equal to ``apply`` and to the
+    JAX service), ``out=.dcm`` (a zip of a series) and ``.mha`` both ways.
+    A zip without DICOM is a client error (400), never a dead request."""
+    base, service = server
+    vol = _vol(n=3)
+    want = service.inferer.apply(vol)
+    upload = _series_zip(vol, tmp_path)
+    status, body, ctype = _post(base + "/v1/segment?name=series.zip", upload)
+    assert status == 200 and ctype == "application/octet-stream", body
+    np.testing.assert_array_equal(_mask(body), want)
+    jax_service = JaxService(lungmask_tpu.LMInferer(modelpath=weights, **F32))
+    jbody, _ = jax_service.segment_bytes(upload, "series.zip", ".nii.gz")
+    np.testing.assert_array_equal(_mask(body), _mask(jbody))
+
+    status, body, ctype = _post(base + "/v1/segment?name=v.nii.gz&out=.dcm", _nii_bytes(vol))
+    assert status == 200 and ctype == "application/zip", body
+    with zipfile.ZipFile(io.BytesIO(body)) as zf:
+        assert zf.namelist() == [f"mask_{z:04d}.dcm" for z in range(3)]
+        zf.extractall(tmp_path / "dcm")
+    np.testing.assert_array_equal(loader.load_input_image(str(tmp_path / "dcm")).array, want)
+
+    status, body, _ = _post(base + "/v1/segment?name=v.nii.gz&out=.mha", _nii_bytes(vol))
+    assert status == 200
+    (tmp_path / "m.mha").write_bytes(body)
+    np.testing.assert_array_equal(loader.load_input_image(str(tmp_path / "m.mha")).array, want)
+    loader.write_image(MedicalImage(vol, spacing=(0.7, 0.7, 2.5)), str(tmp_path / "v.mha"))
+    status, body, _ = _post(base + "/v1/segment?name=v.mha", (tmp_path / "v.mha").read_bytes())
+    assert status == 200
+    np.testing.assert_array_equal(_mask(body), want)
+
+    before = service.metrics()["errors"]
+    empty = io.BytesIO()
+    with zipfile.ZipFile(empty, "w") as zf:
+        zf.writestr("notes.txt", b"no dicom here")
+    status, body, _ = _post(base + "/v1/segment?name=series.zip", empty.getvalue())
+    assert status == 400 and b"No dicoms found" in body
+    status, body, _ = _post(base + "/v1/segment?name=series.zip", b"not a zip")
+    assert status == 400 and b"bad zip" in body
+    assert service.metrics()["errors"] == before + 2
+
+
+def test_zip_bomb_is_refused(server):
+    """A zipped upload is admitted on its compressed length; what it would
+    unpack to is held to the upload cap before anything is extracted."""
+    base, service = server
+    bomb = io.BytesIO()
+    with zipfile.ZipFile(bomb, "w", zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr("IM0001", b"\x00" * (1 << 20))
+    assert len(bomb.getvalue()) < 4096
+    orig_cap = service.max_upload_bytes
+    before = service.metrics()["errors"]
+    try:
+        service.max_upload_bytes = 64 << 10
+        status, body, _ = _post(base + "/v1/segment?name=series.zip", bomb.getvalue())
+        assert status == 400 and b"unpacks to 1048576 bytes" in body
+        with pytest.raises(ValueError, match="above the limit"):
+            service.segment_bytes(bomb.getvalue(), "series.zip", ".nii.gz")
+    finally:
+        service.max_upload_bytes = orig_cap
+    assert service.metrics()["errors"] == before + 1
 
 
 def test_segment_client_errors(server):

@@ -95,3 +95,18 @@ def blocky_slices(n: int, h: int, w: int, seed: int) -> np.ndarray:
     blocks = rng.random((n, h // 8 + 1, w // 8 + 1), dtype=np.float32)
     x = np.repeat(np.repeat(blocks, 8, 1), 8, 2)[:, :h, :w]
     return (x + 0.05 * rng.random((n, h, w), dtype=np.float32))[..., None]
+
+
+def assert_same_image(got, want, mask_tags=()) -> None:
+    """Two ``MedicalImage``s (one per package) hold the same voxels, dtype,
+    spacing, origin, direction and metadata; tags in ``mask_tags`` (fresh
+    UIDs) are compared for presence only."""
+    assert got.array.dtype == want.array.dtype
+    np.testing.assert_array_equal(got.array, want.array)
+    assert tuple(got.spacing) == tuple(want.spacing)
+    assert tuple(got.origin) == tuple(want.origin)
+    np.testing.assert_array_equal(got.direction, want.direction)
+    assert sorted(got.metadata) == sorted(want.metadata)
+    for key, value in want.metadata.items():
+        if key not in mask_tags:
+            assert got.metadata[key] == value, key
