@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port from the sources in this checkout (K1, the
-bodymask; K2 and K3, the U-Net's pooling and upsampling; all nvcc builds
-started together), checks each against its plain PyTorch version on the
-card, then drives two paths at the production width (U-Net wf=6) on a
-192-slice 512² lung phantom made from a seed, with crafted weights:
+bodymask; K2 and K3, the U-Net's pooling and upsampling, and their adjoints
+K2ᵀ and K3ᵀ; all nvcc builds started together), checks each against its
+plain PyTorch version on the card, then drives the port's paths at the
+production width (U-Net wf=6) on a 192-slice 512² lung phantom made from a
+seed, with crafted weights:
 
 * the fused two-model path — ``LMInferer(modelname="LTRCLobes",
   fillmodel="R231")`` and the CLI's ``--modelname LTRCLobes_R231``, both
@@ -33,17 +34,37 @@ card, then drives two paths at the production width (U-Net wf=6) on a
   ``apply``'s;
 * the serve lane — ``make_server`` in this process, three NIfTI uploads from
   two client threads and one zipped DICOM series answered with ``out=.dcm``,
-  every response equal to ``apply``'s.
+  every response equal to ``apply``'s;
+* device preprocessing — ``LMInferer(preprocessing="device").apply``, K1/K2/K3
+  launched 1/24/24 times, its boxes equal to the hybrid mode's, its mask's
+  agreement with the hybrid mask printed, ``apply`` timed in turns with the
+  hybrid mode;
+* fine-tuning — ``train.fit`` of a fresh wf=6 U-Net (``unet.init_params``,
+  seed 0) in bf16 at batch 8 on 256² slices made on the card by
+  ``slices_from_pair`` (phantom[:64] to train, phantom[64:96] to evaluate,
+  the exact-path mask as labels): 16 steps, the loss must fall, each step
+  launching K2/K3/K2ᵀ/K3ᵀ 4/4/4/4 times; a resume from the step-8
+  checkpoint under ``cudnn.deterministic`` against the uninterrupted run;
+  K2ᵀ and K3ᵀ bit-equal to their plain adjoints at the train step's shapes
+  (the stencil phase holds K2 and K3 there too); train-step time, slices/s,
+  peak memory and a profile of three steps; and the ``python -m
+  lungmask_tpu_torch.train.finetune`` entry point on phantom NIfTI pairs,
+  its weights applied by ``LMInferer``.
 
 Each path's calls run with every kernel's launch count set to 0 just before
 them and read just after. Kernel times are CUDA-event medians over runs of
 20 back-to-back launches (so the wrapper's host work between launches stays
 out of the window), beside each kernel's bound: the larger of its bytes
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32, no tensor
-cores), the H100 SXM's published peaks.
+cores), the H100 SXM's published peaks. An adjoint's library time is one
+call of torch's own backward op for the same function
+(``aten.avg_pool2d_backward``, ``aten.upsample_bilinear2d_backward``).
+The kernels line gives K2 and K3 per 32-slice inference chunk and K2ᵀ and
+K3ᵀ per train step of batch 8, each summed over the U-Net's four shapes.
 
 Phases: device, build, kernel, unet, stencil, fused, inferer, cli, dicom,
-postdev, cohort, serve; each prints its results on its own lines. The second-to-last line is a JSON
+postdev, cohort, serve, devprep, train; each prints its results on its own
+lines. The second-to-last line is a JSON
 object describing the kernels; the last line is ``{"ok": true, "device":
 {...}}`` and is printed only when every phase passed. Exits non-zero,
 printing no result, when no CUDA device is available or any phase fails.
@@ -70,6 +91,10 @@ K1_REPLACES = "lungmask_tpu/ops/pallas/bodymask.py:136"
 STENCIL_SOURCE = "lungmask_tpu_torch/csrc/stencil.cu"
 K2_REPLACES = "lungmask_tpu/ops/pallas/stencil.py:58"
 K3_REPLACES = "lungmask_tpu/ops/pallas/stencil.py:126"
+# The JAX package has no backward kernel: K2ᵀ and K3ᵀ replace XLA's
+# transposes of the U-Net's _avg_pool2 and _bilinear_up2.
+K2T_REPLACES = "lungmask_tpu/models/unet.py:176"
+K3T_REPLACES = "lungmask_tpu/models/unet.py:191"
 CHUNK = 32  # the engine's default batch: 192 slices are 6 chunks
 # The U-Net's stencil inputs per chunk at wf=6 (NHWC): its four pools and
 # its four upsamples.
@@ -83,6 +108,19 @@ ODD_SHAPES = [(3, 33, 35, 4), (2, 17, 9, 12), (1, 3, 3, 5), (2, 8, 8, 3)]
 TILE_SHAPES = [(2, 37, 70, 24), (1, 5, 129, 136), (1, 1, 1, 8), (1, 1, 3, 5)]
 VOLUME96_SHAPES = [(2, 6, 6, 1024), (2, 12, 12, 512), (2, 24, 24, 256), (2, 48, 48, 128)]
 K1_BATCHES = (1, 192, 193)
+FORWARD = ("bodymask_labels", "avg_pool2", "bilinear_up2")
+BACKWARD = ("avg_pool2_bwd", "bilinear_up2_bwd")
+TRAIN_BATCH = 8
+# The same stencils in one train step (batch 8); K2ᵀ and K3ᵀ take the
+# gradients of their outputs.
+TRAIN_POOL_SHAPES = [(TRAIN_BATCH,) + s[1:] for s in POOL_SHAPES]
+TRAIN_UP_SHAPES = [(TRAIN_BATCH,) + s[1:] for s in UP_SHAPES]
+# The shapes whose bf16 times are summed: per inference chunk, per train step.
+TIMED = {"chunk": POOL_SHAPES + UP_SHAPES, "step": TRAIN_POOL_SHAPES + TRAIN_UP_SHAPES}
+TRAIN_SLICES, EVAL_SLICES = 64, 32  # phantom[:64] to train, phantom[64:96] to evaluate
+TRAIN_EPOCHS = 2  # 16 steps
+TRAIN_PEAK_LR = 1e-3  # a fresh net: default_optimizer's 1e-4 is a fine-tuning rate
+RESUME_RTOL = 1e-3
 REPS = 20  # back-to-back launches per CUDA-event pair
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -153,7 +191,8 @@ def _ptxas_lines(report: str) -> list:
 
     lines, name = [], None
     for ln in report.splitlines():
-        m = re.search(r"entry function '.*?(bodymask_kernel|avg_pool2_kernel|bilinear_up2_kernel)"
+        m = re.search(r"entry function '.*?(bodymask_kernel|avg_pool2_bwd_kernel|"
+                      r"bilinear_up2_bwd_kernel|avg_pool2_kernel|bilinear_up2_kernel)"
                       r"(?:I(13__nv_bfloat16|f)Li(\d+)E)?", ln)
         if m:
             spill = "spills not reported"
@@ -236,13 +275,15 @@ def _write_series(img, directory: str) -> None:
 
 
 def _kernels():
-    """The launch-counted wrappers: K1, K2, K3."""
+    """The launch-counted wrappers: K1, K2, K3, K2ᵀ, K3ᵀ."""
     from lungmask_tpu_torch.ops.kernels import bodymask, stencil
 
     return {
         "bodymask_labels": bodymask.bodymask_labels,
         "avg_pool2": stencil.avg_pool2,
         "bilinear_up2": stencil.bilinear_up2,
+        "avg_pool2_bwd": stencil.avg_pool2_bwd,
+        "bilinear_up2_bwd": stencil.bilinear_up2_bwd,
     }
 
 
@@ -251,8 +292,9 @@ def _reset_launches() -> None:
         fn.launches = 0
 
 
-def _launches() -> dict:
-    return {name: fn.launches for name, fn in _kernels().items()}
+def _launches(names=FORWARD) -> dict:
+    kernels = _kernels()
+    return {name: kernels[name].launches for name in names}
 
 
 class Smoke:
@@ -449,12 +491,14 @@ class Smoke:
                              18 / 4),
         }
         pool96 = [(2, 96, 96, 64), (2, 48, 48, 128), (2, 24, 24, 256), (2, 12, 12, 512)]
-        cases = [("avg_pool2", s) for s in POOL_SHAPES] + [("bilinear_up2", s) for s in UP_SHAPES]
+        cases = [("avg_pool2", s) for s in POOL_SHAPES + TRAIN_POOL_SHAPES]
+        cases += [("bilinear_up2", s) for s in UP_SHAPES + TRAIN_UP_SHAPES]
         cases += [(name, s) for s in ODD_SHAPES for name in ops]
         cases += [("bilinear_up2", s) for s in TILE_SHAPES + VOLUME96_SHAPES]
         cases += [("avg_pool2", s) for s in pool96]
         errs = {name: 0.0 for name in ops}
-        sums = {name: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0} for name in ops}
+        sums = {name: {per: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
+                       for per in TIMED} for name in ops}
         bound_by = {name: set() for name in ops}
         for name, shape in cases:
             kern, plain, lib_name, lib, ops_per_out = ops[name]
@@ -467,9 +511,10 @@ class Smoke:
                 same = torch.equal(got.view(bits), want.view(bits))
                 errs[name] = max(errs[name], err)
                 dt = str(dtype).split(".")[-1]
-                if not (dtype == torch.bfloat16 and shape[0] == CHUNK):
+                self.check(same, f"{name} differs from its plain version at {shape} {dt}")
+                per = [p for p, shapes in TIMED.items() if shape in shapes]
+                if not (dtype == torch.bfloat16 and per):
                     print(f"[stencil] {name} {shape} {dt}: max_abs_err {err} bit-equal {same}")
-                    self.check(same, f"{name} differs from its plain version at {shape} {dt}")
                     continue
                 med = _in_turns(torch, {"kernel": lambda: kern(x), "plain": lambda: plain(x),
                                         "library": lambda: lib(x)})
@@ -477,8 +522,8 @@ class Smoke:
                                       got.numel() * ops_per_out)
                 bound_by[name].add(by)
                 for k in med:
-                    sums[name][k] += med[k]
-                sums[name]["bound"] += bound_ms
+                    sums[name][per[0]][k] += med[k]
+                sums[name][per[0]]["bound"] += bound_ms
                 slower = [k for k in ("plain", "library") if med["kernel"] > med[k]]
                 note = (f" | SLOWER than {' and '.join(slower)}; the kernel stays"
                         if slower else "")
@@ -486,20 +531,22 @@ class Smoke:
                       f"kernel {med['kernel']:.4f} ms | bound {bound_ms:.4f} ms ({by}), "
                       f"share {bound_ms / med['kernel']:.1%} | plain {med['plain']:.4f} ms | "
                       f"{lib_name} {med['library']:.4f} ms{note}")
-                self.check(same, f"{name} differs from its plain version at {shape} {dt}")
         for name in ops:
-            t = sums[name]
-            print(f"[stencil] {name} per 32-slice bf16 chunk (sum of the U-Net's 4 shapes): "
-                  f"kernel {t['kernel']:.4f} ms | bound {t['bound']:.4f} ms "
-                  f"({'+'.join(sorted(bound_by[name]))}), share "
-                  f"{t['bound'] / t['kernel']:.1%} | plain {t['plain']:.4f} ms | "
-                  f"{ops[name][2]} {t['library']:.4f} ms (medians of 10 CUDA-event runs of "
-                  f"{REPS} launches each, in turns)")
-        self.state["stencil"] = {
-            name: {"max_abs_err": errs[name], "ms": sums[name]["kernel"],
-                   "plain_ms": sums[name]["plain"], "bound_ms": sums[name]["bound"],
+            for per, what in (("chunk", "32-slice bf16 chunk"),
+                              ("step", f"bf16 train step of batch {TRAIN_BATCH}")):
+                t = sums[name][per]
+                print(f"[stencil] {name} per {what} (sum of the U-Net's 4 shapes): "
+                      f"kernel {t['kernel']:.4f} ms | bound {t['bound']:.4f} ms "
+                      f"({'+'.join(sorted(bound_by[name]))}), share "
+                      f"{t['bound'] / t['kernel']:.1%} | plain {t['plain']:.4f} ms | "
+                      f"{ops[name][2]} {t['library']:.4f} ms (medians of 10 CUDA-event runs of "
+                      f"{REPS} launches each, in turns)")
+        self.state["stencil"] = {  # per inference chunk, the path that launches K2/K3 most
+            name: {"max_abs_err": errs[name], "ms": sums[name]["chunk"]["kernel"],
+                   "plain_ms": sums[name]["chunk"]["plain"],
+                   "bound_ms": sums[name]["chunk"]["bound"],
                    "bound_by": "+".join(sorted(bound_by[name])),
-                   "library_ms": sums[name]["library"]}
+                   "library_ms": sums[name]["chunk"]["library"]}
             for name in ops
         }
 
@@ -611,6 +658,8 @@ class Smoke:
                   f"{note} | stage s: {stages}")
         launches = _launches()
         self.state["launches"] = launches
+        self.check(_launches(BACKWARD) == {k: 0 for k in BACKWARD},
+                   f"inference launched an adjoint: {_launches(BACKWARD)}")
         h, w = vol.shape[1:]
         yy, xx = np.mgrid[0:h, 0:w]
         lung_l = ((yy - h / 2) / (h * 0.2)) ** 2 + ((xx - w * 0.35) / (w * 0.12)) ** 2 < 1
@@ -623,6 +672,7 @@ class Smoke:
               f"left lung -> 2: {left:.4f} | right lung -> 1: {right:.4f} | "
               f"shape {m.shape} {m.dtype}")
         self.check(all(np.array_equal(m, o) for o in masks[1:]), "the 3 masks differ")
+        self.state["mask"] = m
         self.check(set(labels) <= {0, 1, 2}, f"labels {labels}")
         self.check(left >= LUNG_MIN_FRACTION and right >= LUNG_MIN_FRACTION, "lung fractions")
         want = {"bodymask_labels": 3, "avg_pool2": 72, "bilinear_up2": 72}
@@ -1010,6 +1060,336 @@ class Smoke:
             self.check(np.array_equal(got, ref), f"the response for {path} differs from apply")
         print("[serve] every response equals apply's")
 
+    def devprep(self):
+        import numpy as np
+
+        from lungmask_tpu_torch import LMInferer
+        from lungmask_tpu_torch.metrics import compare_masks
+
+        vol, hybrid = self.state["phantom"], self.state["inferer"]
+        inferer = LMInferer(modelpath=self.state["weights"], tqdm_disable=True,
+                            preprocessing="device")
+        self.check(inferer.device.type == "cuda", f"device-mode inferer on {inferer.device}")
+        inferer.apply(vol)  # warm-up
+        _reset_launches()
+        mask = inferer.apply(vol)
+        launches = _launches(FORWARD + BACKWARD)
+        chunks = -(-len(vol) // CHUNK)
+        want = {"bodymask_labels": 1, "avg_pool2": 4 * chunks, "bilinear_up2": 4 * chunks,
+                "avg_pool2_bwd": 0, "bilinear_up2_bwd": 0}
+        self.check(launches == want, f"launches {launches}, expected {want}")
+        pre, hyb = inferer.preprocess_image(vol), hybrid.preprocess_image(vol)
+        self.check(pre["normalized"].is_cuda and pre["normalized"].shape == (len(vol), 256, 256),
+                   f"stack {tuple(pre['normalized'].shape)} on {pre['normalized'].device}")
+        same_boxes = bool(np.array_equal(pre["boxes"], hyb["boxes"]))
+        stack_diff = float((pre["normalized"].float() - hyb["normalized"].float()).abs().max())
+        cmp = compare_masks(mask, self.state["mask"])
+        print(f"[devprep] launches in one apply: {launches} | boxes equal the hybrid boxes: "
+              f"{same_boxes} | max |stack difference| against hybrid (bf16) {stack_diff:.3e} | "
+              f"mask vs hybrid: voxel agreement {cmp.voxel_accuracy:.6f}, macro Dice "
+              f"{cmp.macro_dice:.6f} | labels {sorted(int(v) for v in np.unique(mask))}")
+        self.check(same_boxes, "device boxes differ from the hybrid boxes")
+        self.check(mask.shape == vol.shape and mask.dtype == np.uint8, f"mask {mask.shape}")
+        walls = {"device": [], "hybrid": []}
+        stages = {"device": [], "hybrid": []}
+        for name in ("device", "hybrid", "hybrid", "device", "device", "hybrid"):  # in turns
+            inf = inferer if name == "device" else hybrid
+            inf.timings.reset()
+            t0 = time.perf_counter()
+            inf.apply(vol)
+            walls[name].append(time.perf_counter() - t0)
+            stages[name].append(inf.timings.summary().get("preprocess", 0.0))
+        for name in walls:
+            print(f"[devprep] {name} apply s, in turns: "
+                  + ", ".join(f"{t:.4f}" for t in walls[name]) + " | preprocess stage s: "
+                  + ", ".join(f"{t:.4f}" for t in stages[name]) + f" ({self.state['smi']})")
+
+    def _adjoints(self):
+        """K2ᵀ and K3ᵀ bit-equal to their plain adjoints at the U-Net's shapes
+        in a train step (batch 8) and in an inference chunk (32), bf16 and
+        f32, and at the odd and tile-straddling shapes; the bf16 times per
+        train step and per chunk beside the bound, the plain adjoint and
+        torch's own backward op."""
+        torch = self.torch
+        from lungmask_tpu_torch.ops.kernels import stencil as st
+
+        aten = torch.ops.aten
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def pool_out(s):
+            return (s[0], s[1] // 2, s[2] // 2, s[3])
+
+        def up_out(s):
+            return (s[0], 2 * s[1], 2 * s[2], s[3])
+
+        def nchw(t):
+            return t.permute(0, 3, 1, 2)
+
+        ops = {  # name: (output shape, kernel, plain, library backward, operations per dx)
+            "avg_pool2_bwd": (
+                pool_out,
+                lambda g, s: st.avg_pool2_bwd(g, s),
+                lambda g, s: st.avg_pool2_bwd_reference(g, s),
+                lambda g, s: aten.avg_pool2d_backward(
+                    nchw(g), torch.empty(s, dtype=g.dtype, device=dev).permute(0, 3, 1, 2),
+                    [2, 2], [2, 2], [0, 0], False, True, None),
+                1,
+            ),
+            # 7 per row-pass value (H x 2W of them) and 7 per output: 21.
+            "bilinear_up2_bwd": (
+                up_out,
+                lambda g, s: st.bilinear_up2_bwd(g),
+                lambda g, s: st.bilinear_up2_bwd_reference(g),
+                lambda g, s: aten.upsample_bilinear2d_backward(
+                    nchw(g), [2 * s[1], 2 * s[2]], [s[0], s[3], s[1], s[2]], False, 2.0, 2.0),
+                21,
+            ),
+        }
+        cases = [("avg_pool2_bwd", s) for s in POOL_SHAPES + TRAIN_POOL_SHAPES]
+        cases += [("bilinear_up2_bwd", s) for s in UP_SHAPES + TRAIN_UP_SHAPES]
+        cases += [(name, s) for s in ODD_SHAPES for name in ops]
+        cases += [("bilinear_up2_bwd", s) for s in TILE_SHAPES]
+        errs = {name: 0.0 for name in ops}
+        sums = {name: {per: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
+                       for per in TIMED} for name in ops}
+        for name, shape in cases:
+            out_shape, kern, plain, lib, ops_per_dx = ops[name]
+            for dtype in (torch.bfloat16, torch.float32):
+                g = torch.randn(out_shape(shape), generator=gen, device=dev).to(dtype)
+                got, want = kern(g, shape), plain(g, shape)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                same = torch.equal(got.view(bits), want.view(bits))
+                errs[name] = max(errs[name], err)
+                dt = str(dtype).split(".")[-1]
+                self.check(same, f"{name} differs from its plain adjoint at {shape} {dt}")
+                per = [p for p, shapes in TIMED.items() if shape in shapes]
+                if not (dtype == torch.bfloat16 and per):
+                    print(f"[train] {name} {shape} {dt}: max_abs_err {err} bit-equal {same}")
+                    continue
+                lib_err = float((lib(g, shape).permute(0, 2, 3, 1).float()
+                                 - want.float()).abs().max())
+                med = _in_turns(torch, {"kernel": lambda: kern(g, shape),
+                                        "plain": lambda: plain(g, shape),
+                                        "library": lambda: lib(g, shape)})
+                bound_ms, by = _bound((g.numel() + got.numel()) * g.element_size(),
+                                      got.numel() * ops_per_dx)
+                for k in med:
+                    sums[name][per[0]][k] += med[k]
+                sums[name][per[0]]["bound"] += bound_ms
+                slower = [k for k in ("plain", "library") if med["kernel"] > med[k]]
+                note = f" | SLOWER than {' and '.join(slower)}; the kernel stays" if slower else ""
+                print(f"[train] {name} {shape} {dt}: bit-equal {same} | kernel "
+                      f"{med['kernel']:.4f} ms | bound {bound_ms:.4f} ms ({by}), share "
+                      f"{bound_ms / med['kernel']:.1%} | plain {med['plain']:.4f} ms | library "
+                      f"backward {med['library']:.4f} ms (max |diff| to plain {lib_err:.3e}){note}")
+        for name in ops:
+            for per, what in (("chunk", "32-slice bf16 chunk"),
+                              ("step", f"bf16 train step of batch {TRAIN_BATCH}")):
+                t = sums[name][per]
+                print(f"[train] {name} per {what} (the U-Net's 4 shapes): kernel "
+                      f"{t['kernel']:.4f} ms | bound {t['bound']:.4f} ms (bytes), share "
+                      f"{t['bound'] / t['kernel']:.1%} | plain {t['plain']:.4f} ms | library "
+                      f"backward {t['library']:.4f} ms (medians of 10 CUDA-event runs of {REPS} "
+                      f"launches each, in turns; {self.state['smi']})")
+        self.state["adjoints"] = {  # per train step, the one path that launches them
+            name: {"max_abs_err": errs[name], "ms": sums[name]["step"]["kernel"],
+                   "plain_ms": sums[name]["step"]["plain"],
+                   "bound_ms": sums[name]["step"]["bound"],
+                   "bound_by": "bytes", "library_ms": sums[name]["step"]["library"]}
+            for name in ops
+        }
+
+    def train(self):
+        import numpy as np
+
+        torch = self.torch
+        from lungmask_tpu_torch.models import unet
+        from lungmask_tpu_torch.train import default_optimizer, fit, init_train_state
+        from lungmask_tpu_torch.train import make_train_step
+        from lungmask_tpu_torch.train.checkpoint import load_train_state
+        from lungmask_tpu_torch.train.data import SliceDataset, slices_from_pair
+
+        dev = torch.device("cuda", 0)
+        vol, mask = self.state["phantom"], self.state["mask"]
+        tmp = self.state["tmp"]
+        _reset_launches()
+        t0 = time.perf_counter()
+        ds = SliceDataset([(vol[:TRAIN_SLICES], mask[:TRAIN_SLICES])], device=dev)
+        ev = slices_from_pair(vol[TRAIN_SLICES : TRAIN_SLICES + EVAL_SLICES],
+                              mask[TRAIN_SLICES : TRAIN_SLICES + EVAL_SLICES], device=dev)
+        t_data = time.perf_counter() - t0
+        data_launches = _launches(FORWARD + BACKWARD)
+        print(f"[train] slices_from_pair on the card: {len(ds)} train + {len(ev[0])} eval slices "
+              f"of 256² in {t_data:.4f} s, launches {data_launches}, label classes "
+              f"{sorted(int(v) for v in np.unique(ds.labels))}")
+        self.check(data_launches == {"bodymask_labels": 2, "avg_pool2": 0, "bilinear_up2": 0,
+                                     "avg_pool2_bwd": 0, "bilinear_up2_bwd": 0},
+                   f"data launches {data_launches}")
+        params = unet.init_params(3, generator=torch.Generator().manual_seed(0))
+        steps = TRAIN_EPOCHS * (TRAIN_SLICES // TRAIN_BATCH)
+        opt = default_optimizer(steps, peak_lr=TRAIN_PEAK_LR)
+        kw = dict(batch_size=TRAIN_BATCH, optimizer=opt, seed=0, log_every=1,
+                  compute_dtype=torch.bfloat16, device=dev)
+        deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            ck = os.path.join(tmp, "train_state.npz")
+            _reset_launches()
+            t0 = time.perf_counter()
+            res = fit(params, ds, epochs=TRAIN_EPOCHS, eval_pairs=ev, eval_every=steps // 2,
+                      checkpoint_path=ck, checkpoint_every=steps // 2, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches(FORWARD + BACKWARD)
+            self.state["train_launches"] = launches
+            losses = [h["loss"] for h in res.history if "loss" in h]
+            dice = [h["eval_macro_dice"] for h in res.history if "eval_macro_dice" in h]
+            chunks = 2 * -(-EVAL_SLICES // TRAIN_BATCH)  # two evaluations
+            want = {"bodymask_labels": 0, "avg_pool2": 4 * (steps + chunks),
+                    "bilinear_up2": 4 * (steps + chunks), "avg_pool2_bwd": 4 * steps,
+                    "bilinear_up2_bwd": 4 * steps}
+            print(f"[train] fit: {steps} steps of batch {TRAIN_BATCH} (wf=6, bf16, 256²) + 2 "
+                  f"evaluations in {wall:.4f} s | launches {launches} | losses "
+                  + ", ".join(f"{v:.5f}" for v in losses) + " | eval macro Dice "
+                  + ", ".join(f"{v:.6f}" for v in dice))
+            self.check(launches == want, f"fit launches {launches}, expected {want}")
+            self.check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
+            self.check(np.mean(losses[-3:]) < np.mean(losses[:3]), "the loss did not fall")
+            self.check(len(dice) == 2 and all(np.isfinite(dice)), f"eval Dice {dice}")
+            self.check(os.path.exists(ck), "no checkpoint written")
+
+            # The same run cut at step 8, then resumed from its checkpoint.
+            ck8 = os.path.join(tmp, "train_state_step8.npz")
+            half = fit(params, ds, epochs=1, checkpoint_path=ck8, **kw)
+            first = [h["loss"] for h in half.history if "loss" in h]
+            state, _ = load_train_state(ck8, init_train_state(params, opt, dev))
+            step_fn = make_train_step(opt, compute_dtype=torch.bfloat16)
+            resumed = []
+            for im, lb in list(ds.batches(TRAIN_BATCH, seed=0, epochs=TRAIN_EPOCHS))[steps // 2:]:
+                state, loss = step_fn(state, im, lb)
+                resumed.append(float(loss))
+            ref = losses[steps // 2:]
+            exact = resumed == ref and first == losses[: steps // 2]
+            rel = float(np.max(np.abs(np.subtract(resumed, ref)) / np.abs(ref)))
+            print(f"[train] resume from the step-{steps // 2} checkpoint (cudnn.deterministic): "
+                  f"{'bit for bit' if exact else f'max relative loss difference {rel:.3e}'} "
+                  f"against the uninterrupted run | resumed losses "
+                  + ", ".join(f"{v:.5f}" for v in resumed))
+            self.check(exact or rel <= RESUME_RTOL, f"resumed losses differ by {rel}")
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+
+        # One step's launches, then its time after 2 warm steps.
+        state = init_train_state(params, opt, dev)
+        step_fn = make_train_step(opt, compute_dtype=torch.bfloat16)
+        im, lb = next(ds.batches(TRAIN_BATCH, seed=0))
+        im, lb = torch.from_numpy(im).to(dev), torch.from_numpy(lb).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        state, _ = step_fn(state, im, lb)
+        torch.cuda.synchronize()
+        per_step = _launches(FORWARD + BACKWARD)
+        want = {"bodymask_labels": 0, "avg_pool2": 4, "bilinear_up2": 4, "avg_pool2_bwd": 4,
+                "bilinear_up2_bwd": 4}
+        self.check(per_step == want, f"one step launched {per_step}, expected {want}")
+        state, _ = step_fn(state, im, lb)
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, im, lb)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[train] one step launches {per_step} | train step (batch {TRAIN_BATCH}, wf=6, "
+              f"bf16, 256²): median {ms:.3f} ms of 10 after 2 warm steps (range "
+              f"{min(times):.3f}-{max(times):.3f}), {TRAIN_BATCH * 1e3 / ms:.1f} slices/s | peak "
+              f"memory {peak / 2**30:.3f} GiB ({self.state['smi']})")
+        self._profile_steps(step_fn, state, im, lb)
+        self._finetune_cli(params)
+        self._adjoints()
+
+    def _finetune_cli(self, params):
+        """``python -m lungmask_tpu_torch.train.finetune`` on the card: three
+        phantom pairs (NIfTI, 16 slices each; the last held out), one epoch
+        from ``params``; its weights must load and apply."""
+        import numpy as np
+
+        from lungmask_tpu_torch import LMInferer
+        from lungmask_tpu_torch.io import image, loader
+        from lungmask_tpu_torch.models import convert
+
+        vol, mask = self.state["phantom"], self.state["mask"]
+        tmp = self.state["tmp"]
+        data = os.path.join(tmp, "finetune_data")
+        os.makedirs(data)
+        for i in range(3):
+            sl = slice(16 * i, 16 * (i + 1))
+            loader.write_image(image.MedicalImage(vol[sl]), os.path.join(data, f"case{i}.nii.gz"))
+            loader.write_image(image.MedicalImage(mask[sl]),
+                               os.path.join(data, f"case{i}_mask.nii.gz"))
+        start, out = os.path.join(tmp, "start.npz"), os.path.join(tmp, "tuned.npz")
+        convert.save_npz(start, convert.to_jax_params(params))
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "lungmask_tpu_torch.train.finetune", data, out, "--model",
+             start, "--epochs", "1"],
+            capture_output=True, text=True, cwd=REPO, env=env, timeout=600,
+        )
+        wall = time.perf_counter() - t0
+        self.check(res.returncode == 0, f"finetune failed:\n{res.stdout[-2000:]}\n"
+                                        f"{res.stderr[-4000:]}")
+        self.check("on cuda" in res.stdout, f"finetune did not run on the card: {res.stdout}")
+        tuned = LMInferer(modelpath=out, tqdm_disable=True).apply(vol[:16])
+        self.check(tuned.shape == (16,) + vol.shape[1:] and tuned.dtype == np.uint8,
+                   f"the tuned weights gave {tuned.shape} {tuned.dtype}")
+        print(f"[train] finetune CLI: rc 0 in {wall:.2f} s (process start, build check, 32 train "
+              f"+ 16 eval slices, one epoch at wf=6) | "
+              f"{res.stdout.strip().splitlines()[-1].split(';')[0]} | the weights apply: labels "
+              f"{sorted(int(v) for v in np.unique(tuned))}")
+
+    def _profile_steps(self, step_fn, state, im, lb, steps: int = 3):
+        """Where a train step's time goes: ``torch.profiler`` over ``steps``
+        steps — the device's busy time (the union of its kernels'
+        intervals) against the wall, and the kernels with the most device
+        time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = step_fn(state, im, lb)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+        kernels = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                         if e.device_type == cuda)
+        busy, end = 0.0, float("-inf")
+        for a, b in kernels:  # µs; the union of the kernels' intervals
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        busy /= 1e3
+        # Each operator's own kernels (self device time: no double counting
+        # of nested operators).
+        ops = sorted((e for e in prof.key_averages()
+                      if e.device_type == cpu and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+        top = "; ".join(f"{e.key} {e.self_device_time_total / 1e3 / steps:.3f} ms x"
+                        f"{e.count // steps}" for e in ops[:8])
+        print(f"[train] profile of {steps} steps: wall {wall / steps:.3f} ms per step (profiler "
+              f"on), device busy {busy / steps:.3f} ms per step, idle share {1 - busy / wall:.1%}, "
+              f"{len(kernels) // steps} kernels per step | operators by their kernels' time per "
+              f"step: "
+              f"{top or 'no device events recorded'}")
+
 
 def main() -> int:
     import torch
@@ -1033,9 +1413,12 @@ def main() -> int:
             "postdev": {"phantom": "kernel", "inferer": "inferer", "fused_mask": "fused"},
             "cohort": {"phantom": "kernel", "inferer": "inferer", "dev_inferer": "postdev"},
             "serve": {"phantom": "kernel", "inferer": "inferer"},
+            "devprep": {"phantom": "kernel", "inferer": "inferer", "mask": "inferer",
+                        "smi": "device"},
+            "train": {"phantom": "kernel", "mask": "inferer", "smi": "device"},
         }
         for name in ("device", "build", "kernel", "unet", "stencil", "fused", "inferer", "cli",
-                     "dicom", "postdev", "cohort", "serve"):
+                     "dicom", "postdev", "cohort", "serve", "devprep", "train"):
             missing = [(key, maker) for key, maker in needs.get(name, {}).items()
                        if key not in smoke.state]
             if missing:
@@ -1047,18 +1430,23 @@ def main() -> int:
     if smoke.failures:
         print(f"chip_smoke: FAILED phases: {', '.join(smoke.failures)}")
         return 1
-    measured = {"bodymask_labels": smoke.state["k1"], **smoke.state["stencil"]}
+    measured = {"bodymask_labels": smoke.state["k1"], **smoke.state["stencil"],
+                **smoke.state["adjoints"]}
+    launches = {**smoke.state["launches"], **{k: smoke.state["train_launches"][k]
+                                              for k in BACKWARD}}
     sources = {
         "bodymask_labels": (K1_SOURCE, K1_REPLACES),
         "avg_pool2": (STENCIL_SOURCE, K2_REPLACES),
         "bilinear_up2": (STENCIL_SOURCE, K3_REPLACES),
+        "avg_pool2_bwd": (STENCIL_SOURCE, K2T_REPLACES),
+        "bilinear_up2_bwd": (STENCIL_SOURCE, K3T_REPLACES),
     }
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": smoke.state["launches"][name],
+        "launches": launches[name],
         **{key: measured[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     } for name, (source, replaces) in sources.items()]}))

@@ -43,9 +43,9 @@ def get_model(modelname: str = "R231", modelpath=None, device=None):
     or pass it to the deprecated ``apply(model=...)``). ``device`` is
     resolved as ``LMInferer``'s: None means the CUDA device, which must
     exist; pass ``"cpu"`` to run on the CPU."""
-    from lungmask_tpu_torch.inferer import resolve_device
     from lungmask_tpu_torch.models.registry import get_model as _get
     from lungmask_tpu_torch.runtime.engine import UNetRunner
+    from lungmask_tpu_torch.utils.device import resolve_device
 
     params, n_classes = _get(modelname, modelpath)
     return UNetRunner(params, n_classes, device=resolve_device(device))

@@ -48,6 +48,26 @@
 // cudaFuncSetAttribute. Ragged H, W and slabs are clamped on load and
 // masked on store; the scalar path (V = 1) copies with plain loads.
 //
+// K2T and K3T, their adjoints, for the U-Net's backward. They replace XLA's
+// transposes of unet._avg_pool2 and unet._bilinear_up2 (the JAX package
+// has no backward kernel). Same bound as the forwards: one read of the
+// gradient g, one write of the input gradient dx (0.188 ms and 0.376 ms
+// per 32-slice bf16 chunk at the U-Net's shapes, at 3.35 TB/s).
+//   K2T lm_avg_pool2_bwd: dx[2i+a, 2j+b] = 0.25 * g[i, j], exact in float32
+//      and rounded once to the dtype; the last row or column an odd H or W
+//      dropped gets 0. A grid-stride loop with one thread per 16-byte
+//      vector of dx channels, as K2's forward.
+//   K3T lm_bilinear_up2_bwd, in gather form (no atomics): per axis
+//      dx[i] = (0.25*g[2i-1] + 0.75*g[2i]) + (0.75*g[2i+1] + 0.25*g[2i+2])
+//      with the tap indices clamped to [0, 2n): the clamp is the forward's
+//      edge rule transposed (dx[0] also takes 0.25*g[0], dx[n-1] also
+//      0.25*g[2n-1]). The row pass first, kept in float32, then the column
+//      pass, one rounding; __fmul_rn / __fadd_rn in the plain version's
+//      order, so it is bit-equal to bilinear_up2_bwd_reference. A simple
+//      design: one thread per output vector reads its 4 x 4 input vectors
+//      (neighbouring threads share them through L1/L2); staging tiles as
+//      K3's forward does is left for later.
+//
 // C interface for ctypes; each launcher returns cudaGetLastError().
 
 #include <cstdint>
@@ -222,6 +242,77 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+template <typename T, int V>
+__global__ void avg_pool2_bwd_kernel(const T* __restrict__ g, T* __restrict__ dx, int64_t n,
+                                     int64_t h, int64_t w, int64_t c) {
+  const int64_t ho = h / 2, wo = w / 2, cv = c / V;
+  const int64_t total = n * h * w * cv;
+  for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; t < total;
+       t += (int64_t)gridDim.x * blockDim.x) {
+    int64_t r = t / cv;  // input pixel (b, i, j) in raster order
+    const int64_t ch = (t - r * cv) * V;
+    const int64_t j = r % w;
+    r /= w;
+    const int64_t i = r % h;
+    const int64_t b = r / h;
+    float q[V];
+    if (i < 2 * ho && j < 2 * wo) {
+      load_f32<T, V>(g + ((b * ho + i / 2) * wo + j / 2) * c + ch, q);
+#pragma unroll
+      for (int k = 0; k < V; ++k) q[k] = __fmul_rn(q[k], 0.25f);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) q[k] = 0.0f;
+    }
+    store_f32<T, V>(dx + t * V, q);  // dx is (n, h, w, c): element t * V
+  }
+}
+
+// (0.25*a + 0.75*b) + (0.75*c + 0.25*d): the adjoint's four taps, rounded
+// as the plain version rounds them.
+__device__ __forceinline__ float adjoint_taps(float a, float b, float c, float d) {
+  return __fadd_rn(quarter_lerp(a, b), quarter_lerp(d, c));
+}
+
+template <typename T, int V>
+__global__ void bilinear_up2_bwd_kernel(const T* __restrict__ g, T* __restrict__ dx, int64_t n,
+                                        int64_t h, int64_t w, int64_t c) {
+  const int64_t cv = c / V, gw = 2 * w;
+  const int64_t total = n * h * w * cv;
+  for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; t < total;
+       t += (int64_t)gridDim.x * blockDim.x) {
+    int64_t r = t / cv;  // input pixel (b, i, j) in raster order
+    const int64_t ch = (t - r * cv) * V;
+    const int64_t j = r % w;
+    r /= w;
+    const int64_t i = r % h;
+    const int64_t b = r / h;
+    int64_t rows[4], cols[4];  // the clamped taps 2i-1 .. 2i+2 of each axis
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int64_t ri = 2 * i - 1 + k, cj = 2 * j - 1 + k;
+      rows[k] = ri < 0 ? 0 : (ri > 2 * h - 1 ? 2 * h - 1 : ri);
+      cols[k] = cj < 0 ? 0 : (cj > gw - 1 ? gw - 1 : cj);
+    }
+    const T* img = g + b * (2 * h) * gw * c + ch;
+    float col[4][V];  // the row pass at each of the four columns
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float a[V], bb[V], cc[V], d[V];
+      load_f32<T, V>(img + (rows[0] * gw + cols[q]) * c, a);
+      load_f32<T, V>(img + (rows[1] * gw + cols[q]) * c, bb);
+      load_f32<T, V>(img + (rows[2] * gw + cols[q]) * c, cc);
+      load_f32<T, V>(img + (rows[3] * gw + cols[q]) * c, d);
+#pragma unroll
+      for (int k = 0; k < V; ++k) col[q][k] = adjoint_taps(a[k], bb[k], cc[k], d[k]);
+    }
+    float out[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) out[k] = adjoint_taps(col[0][k], col[1][k], col[2][k], col[3][k]);
+    store_f32<T, V>(dx + t * V, out);  // dx is (n, h, w, c): element t * V
+  }
+}
+
 unsigned blocks_for(int64_t threads) {
   const int64_t b = (threads + THREADS - 1) / THREADS;
   return (unsigned)(b < MAX_BLOCKS ? b : MAX_BLOCKS);
@@ -244,6 +335,26 @@ int pool(const void* x, void* y, int64_t n, int64_t h, int64_t w, int64_t c, cud
     avg_pool2_kernel<T, VEC><<<blocks_for(pixels * (c / VEC)), THREADS, 0, s>>>(in, out, n, h, w, c);
   } else {
     avg_pool2_kernel<T, 1><<<blocks_for(pixels * c), THREADS, 0, s>>>(in, out, n, h, w, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+// An adjoint from g into dx (n, h, w, c): the vector path when C and both
+// bases allow it.
+template <typename T>
+using AdjointKernel = void (*)(const T*, T*, int64_t, int64_t, int64_t, int64_t);
+
+template <typename T>
+int adjoint(const void* g, void* dx, int64_t n, int64_t h, int64_t w, int64_t c, cudaStream_t s,
+            AdjointKernel<T> vec, AdjointKernel<T> scalar) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int64_t pixels = n * h * w;
+  const T* in = static_cast<const T*>(g);
+  T* out = static_cast<T*>(dx);
+  if (vectorizable<T>(g, dx, c)) {
+    vec<<<blocks_for(pixels * (c / VEC)), THREADS, 0, s>>>(in, out, n, h, w, c);
+  } else {
+    scalar<<<blocks_for(pixels * c), THREADS, 0, s>>>(in, out, n, h, w, c);
   }
   return (int)cudaGetLastError();
 }
@@ -316,6 +427,41 @@ int lm_bilinear_up2(const void* x, void* y, int64_t n, int64_t h, int64_t w, int
   if (dtype == 0) return up2<float>(x, y, n, h, w, c, vec, rows, tile_w, cvt, threads, s);
   if (dtype == 1)
     return up2<__nv_bfloat16>(x, y, n, h, w, c, vec, rows, tile_w, cvt, threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// g: (n, h/2, w/2, c) NHWC-contiguous, the gradient of lm_avg_pool2's
+// output; dx: (n, h, w, c), the gradient of its input; dtype and stream as
+// above.
+int lm_avg_pool2_bwd(const void* g, void* dx, int64_t n, int64_t h, int64_t w, int64_t c,
+                     int dtype, int device, void* stream) {
+  if (n * h * w * c <= 0) return 0;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return adjoint<float>(g, dx, n, h, w, c, s, avg_pool2_bwd_kernel<float, 4>,
+                          avg_pool2_bwd_kernel<float, 1>);
+  if (dtype == 1)
+    return adjoint<__nv_bfloat16>(g, dx, n, h, w, c, s, avg_pool2_bwd_kernel<__nv_bfloat16, 8>,
+                                  avg_pool2_bwd_kernel<__nv_bfloat16, 1>);
+  return (int)cudaErrorInvalidValue;
+}
+
+// g: (n, 2h, 2w, c), the gradient of lm_bilinear_up2's output; dx:
+// (n, h, w, c), the gradient of its input.
+int lm_bilinear_up2_bwd(const void* g, void* dx, int64_t n, int64_t h, int64_t w, int64_t c,
+                        int dtype, int device, void* stream) {
+  if (n * h * w * c <= 0) return 0;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return adjoint<float>(g, dx, n, h, w, c, s, bilinear_up2_bwd_kernel<float, 4>,
+                          bilinear_up2_bwd_kernel<float, 1>);
+  if (dtype == 1)
+    return adjoint<__nv_bfloat16>(g, dx, n, h, w, c, s, bilinear_up2_bwd_kernel<__nv_bfloat16, 8>,
+                                  bilinear_up2_bwd_kernel<__nv_bfloat16, 1>);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,8 +6,10 @@ geometry-carrying :class:`MedicalImage` is processed in LPS orientation and
 returned in its own; a numpy ``(z, y, x)`` volume passes through. The main
 path is hybrid preprocessing (``transforms/preprocess.py``, the bodymask
 kernel K1 on the device; slices under 128² and ``preprocessing="host"`` take
-the strict host pipeline), the U-Net (``runtime/engine.py``; its pooling and
-upsampling are the kernels K2 and K3), exact host postprocessing
+the strict host pipeline; ``preprocessing="device"`` runs the whole
+preprocessing on the device, K1 included), the U-Net
+(``runtime/engine.py``; its pooling and upsampling are the kernels K2 and
+K3), exact host postprocessing
 (``transforms/postprocess.py`` → the native core) and the native
 paste-back. With ``postprocessing_mode="device"`` the class map stays on the
 device and is cleaned there (``transforms/postprocess_device.py``); only the
@@ -52,27 +54,10 @@ from lungmask_tpu_torch.transforms.postprocess_device import (
     postprocess_device,
     postprocess_device_packed2,
 )
+from lungmask_tpu_torch.utils.device import resolve_device
 from lungmask_tpu_torch.utils.profiling import StageTimer
 
 ImageLike = Union[MedicalImage, np.ndarray]
-
-
-def resolve_device(device=None, force_cpu: bool = False) -> torch.device:
-    """``force_cpu`` or ``device="cpu"`` → CPU; an explicit CUDA device or
-    ``None`` → CUDA, which must exist."""
-    if force_cpu:
-        return torch.device("cpu")
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cpu":
-        return dev
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass force_cpu=True or device='cpu' "
-            "(--cpu on the command line) to run on the CPU"
-        )
-    return torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -116,9 +101,11 @@ class LMInferer:
             volume_postprocessing: connected-component cleanup toggle.
             tqdm_disable: disable progress output (tqdm is optional).
             preprocessing: None or 'hybrid' (the default: device bodymask
-                boxes, float64 host resample) or 'host' (the reference's
-                per-slice scipy chain; bit-equal to 'hybrid'). 'device' and
-                'sharded' are not ported yet (ROADMAP.md queue 1, item 5).
+                boxes, float64 host resample), 'host' (the reference's
+                per-slice scipy chain; bit-equal to 'hybrid') or 'device'
+                (all of it on the device: the same boxes, a float32 gather
+                resample). 'sharded' is not ported yet (ROADMAP.md queue 1,
+                item 10).
             precision: 'bfloat16' (default) or 'float32' (cuDNN TF32 off).
             mesh: multi-device sharding — not ported yet (item 10).
             postprocessing_mode: 'exact' (the host C++ core, bit-faithful to
@@ -135,9 +122,9 @@ class LMInferer:
             raise ValueError(
                 f"Modelname not found. Please choose from: {list(MODEL_URLS)}"
             )
-        if preprocessing in ("device", "sharded"):
-            raise _not_ported(f"preprocessing={preprocessing!r}", 5)
-        if preprocessing not in (None, "hybrid", "host"):
+        if preprocessing == "sharded":
+            raise _not_ported("preprocessing='sharded'", 10)
+        if preprocessing not in (None, "hybrid", "host", "device"):
             raise ValueError(f"unknown preprocessing {preprocessing!r}")
         if mesh is not None:
             raise _not_ported("multi-device sharding (mesh=)", 10)
@@ -181,10 +168,11 @@ class LMInferer:
 
     def _preprocess(self, volume: np.ndarray):
         """→ (normalized device slices (N, 256, 256), boxes (N, 4))."""
-        if self.preprocessing == "host":
-            fn = preprocess.preprocess_host
-        else:
-            fn = preprocess.preprocess_hybrid
+        fn = {
+            "host": preprocess.preprocess_host,
+            "hybrid": preprocess.preprocess_hybrid,
+            "device": preprocess.preprocess,
+        }[self.preprocessing]
         return fn(
             volume,
             resolution=(256, 256),
@@ -298,7 +286,7 @@ class LMInferer:
     # -- split-phase API ----------------------------------------------------
 
     def preprocess_image(self, image: ImageLike) -> dict:
-        """Phase 1 of :meth:`apply`: orientation normalization + hybrid
+        """Phase 1 of :meth:`apply`: orientation normalization +
         preprocessing (the normalized stack ends on the device)."""
         inimg_raw, curr_orient, lps_image = self._to_lps(image)
         with self.timings.stage("preprocess"):

@@ -4,7 +4,8 @@
   (HWIO conv kernels, folded-BN affines — what ``unet.init_params``,
   ``convert.load_npz`` and ``synthetic.laterality_params`` give) into the
   port's tree of torch tensors (OIHW kernels), so both packages compute the
-  same function on the same weights.
+  same function on the same weights; :func:`to_jax_params` is its inverse
+  (fine-tuned weights and gradients back in the JAX layout).
 * :func:`load_npz` / :func:`save_npz` read and write the JAX package's flat
   ``.npz`` format unchanged.
 * :func:`convert_pth` takes a reference ``.pth`` state dict (production
@@ -42,6 +43,21 @@ def from_jax_params(params: Params, device="cpu") -> Params:
     if a.ndim == 4:
         a = a.transpose(3, 2, 0, 1)
     return torch.from_numpy(np.array(a, order="C")).to(device)  # an owned copy
+
+
+def to_jax_params(params: Params) -> Params:
+    """Port tree of tensors (any device) → JAX-layout numpy float32 tree:
+    4-D kernels OIHW → HWIO, everything else as is. The inverse of
+    :func:`from_jax_params`; ``save_npz`` of it writes the file both
+    packages' ``LMInferer(modelpath=)`` read."""
+    if isinstance(params, dict):
+        return {k: to_jax_params(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [to_jax_params(v) for v in params]
+    a = params.detach().to("cpu", torch.float32).numpy()
+    if a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)
+    return np.array(a, order="C")  # an owned copy
 
 
 def _to_numpy(t) -> np.ndarray:

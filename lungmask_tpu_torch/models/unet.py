@@ -26,11 +26,25 @@ into a per-channel affine (``models/convert.py``).
 ``float32`` runs with cuDNN's TF32 turned off for the call
 (``torch.backends.cudnn.flags``), so f32 logits are full float32 on a GPU.
 The ``residual`` and ``upconv`` variants are ROADMAP.md queue 1, item 8.
+
+Two ways to hold the weights, one forward:
+
+* inference (the default): buffers, the kernels pre-cast to the compute
+  dtype (the JAX engine's ``_cast_kernels``), biases and affines float32;
+* ``trainable=True``: float32 master weights as ``nn.Parameter``s (the
+  folded-BN affines' scale and bias included, as in JAX's tree), each
+  kernel cast to the activations' dtype at its convolution as JAX's
+  ``w.astype(x.dtype)`` does. The stencils are autograd Functions whose
+  backward is K2ᵀ / K3ᵀ on the GPU.
+
+:meth:`UNet.tree` gives the weights (or gradients, or optimizer moments) as
+the port tree of ``models/convert.from_jax_params``; :func:`init_params`
+draws a fresh tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,23 +75,57 @@ def _center_crop(skip: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return skip[:, :, dy : dy + h, dx : dx + w]
 
 
+def _hold(module: nn.Module, name: str, value: torch.Tensor, trainable: bool,
+          dtype: torch.dtype, at: Tuple[str, str]) -> None:
+    """Keep weight ``name``, which sits at ``at`` = (group, key) of the
+    module's port tree: a float32 ``nn.Parameter`` of its own (trainable) or
+    a buffer in ``dtype``."""
+    if trainable:
+        module.register_parameter(name, nn.Parameter(value.detach().float().clone()))
+    else:
+        module.register_buffer(name, value.detach().to(dtype))
+    if "tree_at" not in module.__dict__:
+        module.tree_at = {}
+    module.tree_at[name] = at
+
+
+def _subtree(module: nn.Module, prefix: str, pick) -> Params:
+    """The port tree of ``module``: its weights where :func:`_hold` put
+    them, each as ``pick(state_dict name, weight)``, and its children's
+    trees under their names (a ``ModuleList`` as a list)."""
+    node: Params = {}
+    for name, (group, key) in getattr(module, "tree_at", {}).items():
+        node.setdefault(group, {})[key] = pick(prefix + name, getattr(module, name))
+    for cname, child in module.named_children():
+        if isinstance(child, nn.ModuleList):
+            node[cname] = [_subtree(c, f"{prefix}{cname}.{i}.", pick) for i, c in enumerate(child)]
+        else:
+            node[cname] = _subtree(child, f"{prefix}{cname}.", pick)
+    return node
+
+
+def _vec(t: torch.Tensor) -> torch.Tensor:
+    """A (C,) per-channel vector as (1, C, 1, 1)."""
+    return t.view(1, -1, 1, 1)
+
+
 class ConvBlock(nn.Module):
-    """conv3x3 → ReLU → affine, twice. Weights OIHW in the compute dtype;
-    biases and affines float32."""
+    """conv3x3 → ReLU → affine, twice. Kernels OIHW, cast to the
+    activations' dtype; biases and affines float32."""
 
-    def __init__(self, p: Params, compute_dtype: torch.dtype):
+    def __init__(self, p: Params, compute_dtype: torch.dtype, trainable: bool = False):
         super().__init__()
-        self.compute_dtype = compute_dtype
         for i in (1, 2):
-            conv, bn = p[f"conv{i}"], p[f"bn{i}"]
-            self.register_buffer(f"w{i}", conv["w"].to(compute_dtype))
-            self.register_buffer(f"b{i}", conv["b"].float().view(1, -1, 1, 1))
-            self.register_buffer(f"s{i}", bn["scale"].float().view(1, -1, 1, 1))
-            self.register_buffer(f"t{i}", bn["bias"].float().view(1, -1, 1, 1))
+            conv, bn = f"conv{i}", f"bn{i}"
+            _hold(self, f"w{i}", p[conv]["w"], trainable, compute_dtype, (conv, "w"))
+            _hold(self, f"b{i}", p[conv]["b"], trainable, torch.float32, (conv, "b"))
+            _hold(self, f"s{i}", p[bn]["scale"], trainable, torch.float32, (bn, "scale"))
+            _hold(self, f"t{i}", p[bn]["bias"], trainable, torch.float32, (bn, "bias"))
 
-    def _stage(self, x, w, b, s, t):
-        y = F.conv2d(x, w, padding=1).float() + b
-        return (torch.relu(y) * s + t).to(self.compute_dtype)
+    @staticmethod
+    def _stage(x, w, b, s, t):
+        y = F.conv2d(x, w.to(x.dtype), padding=1).float() + _vec(b)
+        return (torch.relu(y) * _vec(s) + _vec(t)).to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self._stage(x, self.w1, self.b1, self.s1, self.t1)
@@ -87,21 +135,20 @@ class ConvBlock(nn.Module):
 class UpBlock(nn.Module):
     """Bilinear ×2 → 1×1 projection → centre-cropped skip concat → conv block."""
 
-    def __init__(self, p: Params, compute_dtype: torch.dtype):
+    def __init__(self, p: Params, compute_dtype: torch.dtype, trainable: bool = False):
         super().__init__()
         if "upconv" in p or "res" in p:
             raise NotImplementedError(
                 "the upconv and residual U-Net variants are not ported yet "
                 "(ROADMAP.md queue 1, item 8)"
             )
-        self.compute_dtype = compute_dtype
-        self.register_buffer("wp", p["proj"]["w"].to(compute_dtype))
-        self.register_buffer("bp", p["proj"]["b"].float().view(1, -1, 1, 1))
-        self.conv_block = ConvBlock(p["conv_block"], compute_dtype)
+        _hold(self, "wp", p["proj"]["w"], trainable, compute_dtype, ("proj", "w"))
+        _hold(self, "bp", p["proj"]["b"], trainable, torch.float32, ("proj", "b"))
+        self.conv_block = ConvBlock(p["conv_block"], compute_dtype, trainable)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         up = stencil.bilinear_up2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        up = (F.conv2d(up, self.wp).float() + self.bp).to(self.compute_dtype)
+        up = (F.conv2d(up, self.wp.to(up.dtype)).float() + _vec(self.bp)).to(up.dtype)
         skip = _center_crop(skip, up.shape[2], up.shape[3])
         x = torch.cat([up, skip], dim=1)
         return self.conv_block(x)
@@ -109,9 +156,11 @@ class UpBlock(nn.Module):
 
 class UNet(nn.Module):
     """The production U-Net over a port parameter tree (see
-    ``models/convert.from_jax_params``)."""
+    ``models/convert.from_jax_params``); ``trainable`` holds float32 master
+    weights as parameters (module docstring)."""
 
-    def __init__(self, params: Params, compute_dtype: torch.dtype = torch.float32):
+    def __init__(self, params: Params, compute_dtype: torch.dtype = torch.float32,
+                 trainable: bool = False):
         super().__init__()
         if any("res" in blk for blk in params["down"]):
             raise NotImplementedError(
@@ -119,24 +168,24 @@ class UNet(nn.Module):
                 "(ROADMAP.md queue 1, item 8)"
             )
         self.compute_dtype = compute_dtype
-        self.down = nn.ModuleList(ConvBlock(p, compute_dtype) for p in params["down"])
-        self.up = nn.ModuleList(UpBlock(p, compute_dtype) for p in params["up"])
+        self.down = nn.ModuleList(ConvBlock(p, compute_dtype, trainable) for p in params["down"])
+        self.up = nn.ModuleList(UpBlock(p, compute_dtype, trainable) for p in params["up"])
         # Head (O, I, 1, 1) → (I, O) for the channel matmul; the weight is
-        # stored in the compute dtype like every kernel, and multiplied in
+        # cast to the compute dtype like every kernel, and multiplied in
         # float32 (exact for bf16 values), as the JAX head accumulates.
         w = params["last"]["w"]
-        self.register_buffer("wl", w[:, :, 0, 0].t().to(compute_dtype).contiguous())
-        self.register_buffer("bl", params["last"]["b"].float())
+        _hold(self, "wl", w[:, :, 0, 0].t().contiguous(), trainable, compute_dtype, ("last", "w"))
+        _hold(self, "bl", params["last"]["b"], trainable, torch.float32, ("last", "b"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 1) NHWC → (N, H, W, K) float32 logits."""
-        flags = (
-            torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
-            if self.compute_dtype == torch.float32
-            else torch.backends.cudnn.flags(enabled=True)
-        )
-        with flags:
-            x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
+        return self.logits(x)
+
+    def logits(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """:meth:`forward` in ``compute_dtype`` (the model's by default)."""
+        dtype = self.compute_dtype if compute_dtype is None else compute_dtype
+        with conv_flags(dtype):
+            x = x.permute(0, 3, 1, 2).to(dtype)
             x = x.contiguous(memory_format=torch.channels_last)
             skips = []
             for i, block in enumerate(self.down):
@@ -147,7 +196,26 @@ class UNet(nn.Module):
             for i, block in enumerate(self.up):
                 x = block(x, skips[-i - 1])
             nhwc = x.permute(0, 2, 3, 1).float()
-            return torch.matmul(nhwc, self.wl.float()) + self.bl
+            return torch.matmul(nhwc, self.wl.to(dtype).float()) + self.bl
+
+    def tree(self, of: Optional[Dict[str, torch.Tensor]] = None) -> Params:
+        """The port tree (OIHW kernels, (C,) vectors) of the weights this
+        model holds, or, given ``of``, of those tensors (keyed by
+        ``state_dict`` name and shaped like the weights: gradients,
+        optimizer moments). Leaves are the tensors themselves or views of
+        them (the head's transpose)."""
+        tree = _subtree(self, "", lambda name, t: t if of is None else of[name])
+        tree["last"]["w"] = tree["last"]["w"].t()[:, :, None, None]
+        return tree
+
+
+def conv_flags(compute_dtype: torch.dtype):
+    """cuDNN's settings for a U-Net pass in ``compute_dtype``: TF32 off for
+    float32, so f32 convolutions (forward and backward) are full float32 on
+    a GPU."""
+    if compute_dtype == torch.float32:
+        return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+    return torch.backends.cudnn.flags(enabled=True)
 
 
 def unet_logits(model: UNet, x: torch.Tensor) -> torch.Tensor:
@@ -159,6 +227,48 @@ def unet_argmax(model: UNet, x: torch.Tensor) -> torch.Tensor:
     """Per-pixel class (uint8); argmax ∘ log_softmax == argmax, so the
     reference head's normalization is skipped. Ties go to the first class."""
     return torch.argmax(model(x), dim=-1).to(torch.uint8)
+
+
+def init_params(
+    n_classes: int,
+    *,
+    in_channels: int = IN_CHANNELS,
+    depth: int = DEPTH,
+    wf: int = WF,
+    generator: torch.Generator,
+) -> Params:
+    """A random port tree with the architecture's shapes (JAX's
+    ``unet.init_params``): each conv's weight and bias drawn
+    U(−1/√fan_in, 1/√fan_in) (torch's Conv2d default) in JAX's HWIO shape,
+    in JAX's order, from ``generator``, then laid out OIHW; folded-BN
+    affines identity (scale 1, bias 0). float32 on the CPU. The numbers are
+    not JAX's: the two draw from different generators."""
+    chans = encoder_channels(depth, wf)
+
+    def uniform(shape, bound):
+        return (torch.rand(shape, generator=generator) * 2 - 1) * bound
+
+    def conv(kh, kw, cin, cout):
+        bound = 1.0 / float(kh * kw * cin) ** 0.5
+        w = uniform((kh, kw, cin, cout), bound)
+        return {"w": w.permute(3, 2, 0, 1).contiguous(), "b": uniform((cout,), bound)}
+
+    def affine(cout):
+        return {"scale": torch.ones(cout), "bias": torch.zeros(cout)}
+
+    def block(cin, cout):
+        return {"conv1": conv(3, 3, cin, cout), "bn1": affine(cout),
+                "conv2": conv(3, 3, cout, cout), "bn2": affine(cout)}
+
+    down, prev = [], in_channels
+    for c in chans:
+        down.append(block(prev, c))
+        prev = c
+    up = []
+    for i in reversed(range(depth - 1)):
+        up.append({"proj": conv(1, 1, prev, chans[i]), "conv_block": block(2 * chans[i], chans[i])})
+        prev = chans[i]
+    return {"down": down, "up": up, "last": conv(1, 1, prev, n_classes)}
 
 
 def n_classes_of(params: Params) -> int:

@@ -76,6 +76,40 @@ def bilinear_up2_reference(x: torch.Tensor) -> torch.Tensor:
     return _quarter_lerps(_quarter_lerps(x.float(), 1), 2).to(x.dtype)
 
 
+def avg_pool2_bwd_reference(g: torch.Tensor, in_shape) -> torch.Tensor:
+    """Plain torch K2ᵀ: the gradient (N, H//2, W//2, C) of K2's output →
+    the gradient (N, H, W, C) of its input: ``0.25·g`` in float32 on each
+    window's four pixels, 0 on a dropped last row or column, cast once."""
+    n, h, w, c = in_shape
+    ho, wo = h // 2, w // 2
+    q = g.float() * 0.25
+    dx = torch.zeros((n, h, w, c), dtype=q.dtype, device=g.device)
+    for a in (0, 1):
+        for b in (0, 1):
+            dx[:, a : 2 * ho : 2, b : 2 * wo : 2] = q
+    return dx.to(g.dtype)
+
+
+def _quarter_lerps_adjoint(f: torch.Tensor, dim: int) -> torch.Tensor:
+    """The adjoint of :func:`_quarter_lerps` along ``dim`` (2n → n):
+    ``(0.25·f[2i−1] + 0.75·f[2i]) + (0.75·f[2i+1] + 0.25·f[2i+2])``, the
+    outer taps clamped to [0, 2n)."""
+    m = f.shape[dim]
+    i2 = torch.arange(0, m, 2, device=f.device)
+
+    def tap(idx):
+        return f.index_select(dim, idx.clamp(0, m - 1))
+
+    return (0.25 * tap(i2 - 1) + 0.75 * tap(i2)) + (0.75 * tap(i2 + 1) + 0.25 * tap(i2 + 2))
+
+
+def bilinear_up2_bwd_reference(g: torch.Tensor) -> torch.Tensor:
+    """Plain torch K3ᵀ: the gradient (N, 2H, 2W, C) of K3's output → the
+    gradient (N, H, W, C) of its input, the row pass then the column pass
+    in float32, cast once."""
+    return _quarter_lerps_adjoint(_quarter_lerps_adjoint(g.float(), 1), 2).to(g.dtype)
+
+
 @dataclass(frozen=True)
 class Up2Plan:
     """K3's tiling of an (N, H, W, C) input: ``rows`` input rows and
@@ -127,14 +161,18 @@ def up2_plan(shape: Tuple[int, int, int, int], itemsize: int, aligned: bool = Tr
 
 
 def build() -> ctypes.CDLL:
-    """Compile (when missing or older than its source) and load K2 and K3."""
+    """Compile (when missing or older than its source) and load K2, K3 and
+    their adjoints."""
     global _LIB
     if _LIB is None:
         lib = _nvcc.build(SOURCE, "libstencil")
         shape = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int64] * 4 + [ctypes.c_int]
         lib.lm_avg_pool2.argtypes = shape + [ctypes.c_int, ctypes.c_void_p]
         lib.lm_bilinear_up2.argtypes = shape + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        for fn in (lib.lm_avg_pool2, lib.lm_bilinear_up2):
+        lib.lm_avg_pool2_bwd.argtypes = shape + [ctypes.c_int, ctypes.c_void_p]
+        lib.lm_bilinear_up2_bwd.argtypes = shape + [ctypes.c_int, ctypes.c_void_p]
+        for fn in (lib.lm_avg_pool2, lib.lm_bilinear_up2, lib.lm_avg_pool2_bwd,
+                   lib.lm_bilinear_up2_bwd):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -150,14 +188,15 @@ def _checked(x: torch.Tensor, op: str) -> torch.Tensor:
     return x.contiguous()
 
 
-def _launch(fn_name: str, x: torch.Tensor, y: torch.Tensor, *plan: int) -> bool:
+def _launch(fn_name: str, x: torch.Tensor, y: torch.Tensor, *plan: int, shape=None) -> bool:
     """Launch a stencil kernel from ``x`` into ``y`` (with K3's tile plan
-    fields after the dtype); False when there is no work (an empty
+    fields after the dtype); ``shape`` is the (N, H, W, C) the kernel is
+    told, ``x``'s by default. False when there is no work (an empty
     tensor)."""
     if y.numel() == 0:
         return False
     fn = getattr(build(), fn_name)
-    n, h, w, c = x.shape
+    n, h, w, c = x.shape if shape is None else shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(
         x.data_ptr(), y.data_ptr(), n, h, w, c, _DTYPE_CODES[x.dtype], *plan,
@@ -168,10 +207,7 @@ def _launch(fn_name: str, x: torch.Tensor, y: torch.Tensor, *plan: int) -> bool:
     return True
 
 
-def avg_pool2(x: torch.Tensor) -> torch.Tensor:
-    """2×2 stride-2 average pooling of an NHWC tensor (bf16 or float32) →
-    (N, H//2, W//2, C). Counts kernel launches in ``avg_pool2.launches``."""
-    x = _checked(x, "avg_pool2")
+def _pool_forward(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return avg_pool2_reference(x)
     n, h, w, c = x.shape
@@ -181,11 +217,7 @@ def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def bilinear_up2(x: torch.Tensor) -> torch.Tensor:
-    """Bilinear ×2 upsampling (half-pixel centres) of an NHWC tensor (bf16 or
-    float32) → (N, 2H, 2W, C). Counts kernel launches in
-    ``bilinear_up2.launches``."""
-    x = _checked(x, "bilinear_up2")
+def _up_forward(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return bilinear_up2_reference(x)
     n, h, w, c = x.shape
@@ -196,5 +228,76 @@ def bilinear_up2(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def avg_pool2_bwd(g: torch.Tensor, in_shape) -> torch.Tensor:
+    """K2ᵀ: the gradient (N, H//2, W//2, C) of :func:`avg_pool2`'s output →
+    the gradient of its (N, H, W, C) input, contiguous NHWC (so the NCHW
+    view the U-Net takes of it is channels_last). Counts kernel launches in
+    ``avg_pool2_bwd.launches``."""
+    g = _checked(g, "avg_pool2_bwd")
+    n, h, w, c = in_shape
+    if g.shape != (n, h // 2, w // 2, c):
+        raise ValueError(f"gradient {tuple(g.shape)} does not fit an input of {tuple(in_shape)}")
+    if g.device.type == "cpu":
+        return avg_pool2_bwd_reference(g, in_shape)
+    dx = torch.empty((n, h, w, c), dtype=g.dtype, device=g.device)
+    if _launch("lm_avg_pool2_bwd", g, dx, shape=(n, h, w, c)):
+        count_launch(avg_pool2_bwd)
+    return dx
+
+
+def bilinear_up2_bwd(g: torch.Tensor) -> torch.Tensor:
+    """K3ᵀ: the gradient (N, 2H, 2W, C) of :func:`bilinear_up2`'s output →
+    the gradient of its (N, H, W, C) input, contiguous NHWC. Counts kernel
+    launches in ``bilinear_up2_bwd.launches``."""
+    g = _checked(g, "bilinear_up2_bwd")
+    n, h2, w2, c = g.shape
+    if h2 % 2 or w2 % 2:
+        raise ValueError(f"gradient {tuple(g.shape)} is not of a ×2 upsample")
+    if g.device.type == "cpu":
+        return bilinear_up2_bwd_reference(g)
+    dx = torch.empty((n, h2 // 2, w2 // 2, c), dtype=g.dtype, device=g.device)
+    if _launch("lm_bilinear_up2_bwd", g, dx, shape=(n, h2 // 2, w2 // 2, c)):
+        count_launch(bilinear_up2_bwd)
+    return dx
+
+
+class _AvgPool2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.in_shape = tuple(x.shape)
+        return _pool_forward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return avg_pool2_bwd(g, ctx.in_shape)
+
+
+class _BilinearUp2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _up_forward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return bilinear_up2_bwd(g)
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2×2 stride-2 average pooling of an NHWC tensor (bf16 or float32) →
+    (N, H//2, W//2, C); differentiable (backward :func:`avg_pool2_bwd`).
+    Counts kernel launches in ``avg_pool2.launches``."""
+    return _AvgPool2.apply(_checked(x, "avg_pool2"))
+
+
+def bilinear_up2(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear ×2 upsampling (half-pixel centres) of an NHWC tensor (bf16 or
+    float32) → (N, 2H, 2W, C); differentiable (backward
+    :func:`bilinear_up2_bwd`). Counts kernel launches in
+    ``bilinear_up2.launches``."""
+    return _BilinearUp2.apply(_checked(x, "bilinear_up2"))
+
+
 avg_pool2.launches = 0
 bilinear_up2.launches = 0
+avg_pool2_bwd.launches = 0
+bilinear_up2_bwd.launches = 0

@@ -1,6 +1,16 @@
-"""Hybrid preprocessing: packed threshold bits → device bodymask/boxes → host
-crop + resize + normalize (counterpart of the hybrid half of
+"""Device and hybrid preprocessing (counterpart of
 ``lungmask_tpu.transforms.preprocess``).
+
+Device mode (:func:`preprocess`, ``preprocessing="device"``): the raw volume
+is uploaded once; on its device it is clipped to [−1024, 600] HU, each slice
+nearest-subsampled to 128², the bodymasks come from K1 and plain torch, the
+crop boxes from them (:func:`_box_from_mask`, both of the JAX package's
+branches), and the crop + scipy-exact bilinear resize + window + normalize
+runs as batched gathers from a float64 host plan (``ops/resample.py``).
+Only the ``(N, 4)`` boxes come down. Unlike the JAX package, no slice
+padding: it only bounded the number of jit programs.
+
+Hybrid mode (:func:`preprocess_hybrid`, the default):
 
 1. host: nearest-subsample every slice to 128² with the exact scipy order-0
    plan, threshold at −500 HU, pack to bits (:func:`pack_bodymask_bits`);
@@ -10,9 +20,12 @@ crop + resize + normalize (counterpart of the hybrid half of
    normalize (native C++ core, scipy fallback), then one upload of the 256²
    stack, cast to the compute dtype on the device.
 
-Slices smaller than 128² take the strict host pipeline
+In hybrid mode, slices smaller than 128² take the strict host pipeline
 (``transforms/host_pipeline.py``) instead, as the JAX package's do; its
 stack is cast and uploaded the same way.
+
+Every entry point computes on CUDA unless its ``device`` is ``"cpu"``
+(``utils/device.resolve_device``).
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ import torch
 
 from lungmask_tpu_torch.ops import cc, morphology, resample
 from lungmask_tpu_torch.ops.kernels.bodymask import bodymask_labels
+from lungmask_tpu_torch.utils.device import resolve_device
 
 HU_LO = -1024
 HU_HI = 600
@@ -50,6 +64,11 @@ def pack_bodymask_bits(volume: np.ndarray) -> np.ndarray:
     return np.packbits(mask, axis=-1)
 
 
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """scipy's integer-output cast for interpolated values: trunc(x ± 0.5)."""
+    return torch.trunc(x + torch.where(x >= 0, 0.5, -0.5))
+
+
 def _bodymask128_from_labels(labels: torch.Tensor, eroded: torch.Tensor) -> torch.Tensor:
     """Largest-region keep + dilation ×2 given the 4-connected labels of the
     eroded masks, per plane. A plane without a region keeps its eroded mask
@@ -70,21 +89,31 @@ def _upzoom_box_tables(src: int, dst: int, device) -> torch.Tensor:
     return torch.from_numpy(idx).to(device)
 
 
+def _bodymask128(smalls: torch.Tensor) -> torch.Tensor:
+    """(N, 128, 128) HU → (N, 128, 128) bool bodymasks: K1, then the
+    largest-region keep and dilation."""
+    return _bodymask128_from_labels(*bodymask_labels(smalls))
+
+
 def _box_from_mask(shape: Tuple[int, int], mask128: torch.Tensor) -> torch.Tensor:
     """(N, 4) int32 crop boxes (r0, c0, r1, c1) of (N, 128, 128) bodymasks for
-    slices of ``shape`` ≥ 128².
+    slices of ``shape``.
 
     The reference nearest-upzooms the bodymask, relabels it 8-connected at
     full resolution and boxes the first region (lungmask/utils.py:82,98-106).
-    For upzooms, the first full-resolution component is the image of the
-    first 128² component, so its box is the preimage range of the 128² box
-    through the static zoom tables (the JAX package's ``_box_from_mask``
-    gives the argument and its one caveat, which the bodymask chain cannot
-    trigger). A plane without a region boxes the full image.
+    Slices of at least 128² (an upzoom): the first full-resolution component
+    is the image of the first 128² component, so its box is the preimage
+    range of the 128² box through the static zoom tables (the JAX package's
+    ``_box_from_mask`` gives the argument and its one caveat, which the
+    bodymask chain cannot trigger). Smaller slices (components can merge or
+    vanish) take the reference's own route: an order-0 resize to the slice,
+    8-connected labels per plane, the first region's box. A plane without a
+    region boxes the full image.
     """
     h, w = shape
     if h < 128 or w < 128:
-        raise ValueError(f"slices of {h}x{w} (< 128²) take the strict host pipeline")
+        full = resample.resize(mask128, (mask128.shape[0], h, w), order=0)
+        return cc.first_component_bbox(cc.label(full))
     labels = cc.label(mask128)  # 8-connectivity at 128²
     box128 = cc.first_component_bbox(labels)
     ridx = _upzoom_box_tables(128, h, mask128.device)
@@ -117,9 +146,62 @@ def _boxes_from_packed(
 ) -> torch.Tensor:
     """(N, 128, 16) packed threshold bits → (N, 4) int32 crop boxes, on the
     device ``packed`` lies on."""
-    labels, eroded = bodymask_labels(smalls_from_packed(packed))
-    masks = _bodymask128_from_labels(labels, eroded)
-    return _box_from_mask(shape, masks)
+    return _box_from_mask(shape, _bodymask128(smalls_from_packed(packed)))
+
+
+def _upload(volume: np.ndarray, device) -> torch.Tensor:
+    """The raw volume on ``device`` in the type the JAX package computes in
+    (it runs without 64-bit types): float volumes as float32, int16 as is,
+    other integers as int32."""
+    vol = np.asarray(volume)
+    if np.issubdtype(vol.dtype, np.floating):
+        vol = vol.astype(np.float32, copy=False)
+    elif vol.dtype not in (np.int16, np.int32):
+        vol = vol.astype(np.int32)
+    return torch.from_numpy(np.require(vol, requirements=["C", "W"])).to(device)
+
+
+def _boxes_for_volume(raw: torch.Tensor) -> torch.Tensor:
+    """(N, 4) int32 crop boxes of a raw (unclipped) HU volume, on its
+    device: clip, order-0 subsample to 128², bodymasks, boxes."""
+    smalls = resample.resize(raw.clamp(HU_LO, HU_HI), (raw.shape[0], 128, 128), order=0)
+    return _box_from_mask(tuple(raw.shape[1:]), _bodymask128(smalls))
+
+
+def _crop_normalize(raw: torch.Tensor, plan, integer_input: bool) -> torch.Tensor:
+    """Clip, crop + resize by ``plan``, round half away from zero for an
+    integer volume (scipy's cast), window at 600 HU, ``(x + 1024) / 1624``."""
+    slices = resample.apply_crop_resize(raw.clamp(HU_LO, HU_HI), plan)
+    if integer_input:
+        slices = _round_half_away(slices)
+    return (slices.clamp(max=float(HU_HI)) + 1024.0) / 1624.0
+
+
+def compute_boxes(volume: np.ndarray, device=None) -> np.ndarray:
+    """Crop boxes of every slice of a (N, H, W) HU volume, computed on
+    ``device`` (CUDA unless ``"cpu"``): (N, 4) int32 numpy."""
+    return _boxes_for_volume(_upload(volume, resolve_device(device))).cpu().numpy()
+
+
+def preprocess(
+    volume: np.ndarray,
+    resolution: Tuple[int, int] = (256, 256),
+    compute_dtype: torch.dtype = torch.float32,
+    device=None,
+) -> Tuple[torch.Tensor, np.ndarray]:
+    """Device preprocessing of a (N, H, W) HU volume (module docstring).
+
+    Returns:
+        normalized: (N, res, res) tensor on ``device`` (CUDA unless
+            ``"cpu"``) in [0, 1], computed in float32 and cast once to
+            ``compute_dtype``.
+        boxes: (N, 4) int32 numpy crop boxes.
+    """
+    raw = _upload(volume, resolve_device(device))
+    boxes = _boxes_for_volume(raw).cpu().numpy()
+    plan = resample.crop_resize_plan(boxes, resolution, order=1, device=raw.device)
+    normalized = _crop_normalize(raw, plan, not raw.is_floating_point())
+    return normalized.to(compute_dtype), boxes
 
 
 def _crop_resize_normalize_scipy(
@@ -158,12 +240,13 @@ def preprocess_hybrid(
     volume: np.ndarray,
     resolution: Tuple[int, int] = (256, 256),
     compute_dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device=None,
 ) -> Tuple[torch.Tensor, np.ndarray]:
     """Transfer-lean preprocessing of a (N, H, W) HU volume.
 
     Returns:
-        normalized: (N, res, res) tensor on ``device`` in [0, 1], in
+        normalized: (N, res, res) tensor on ``device`` (CUDA unless
+            ``"cpu"``) in [0, 1], in
             ``compute_dtype`` (the float32 → bf16 cast rounds to nearest
             even, as the JAX host cast does).
         boxes: (N, 4) int32 numpy crop boxes.
@@ -173,9 +256,9 @@ def preprocess_hybrid(
     same float64 arithmetic, with the boxes of the host bodymask.
     """
     n, h, w = volume.shape
+    device = resolve_device(device)
     if h < 128 or w < 128:
         return preprocess_host(volume, resolution, compute_dtype, device)
-    device = torch.device(device)
     packed = torch.from_numpy(pack_bodymask_bits(volume)).to(device)
     boxes = _boxes_from_packed(packed, (h, w)).cpu().numpy()
     normalized = crop_resize_normalize_host(volume, boxes, resolution)
@@ -187,7 +270,7 @@ def preprocess_host(
     volume: np.ndarray,
     resolution: Tuple[int, int] = (256, 256),
     compute_dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device=None,
 ) -> Tuple[torch.Tensor, np.ndarray]:
     """Strict host preprocessing (``preprocessing="host"``): the reference's
     per-slice scipy chain (:mod:`host_pipeline`), normalized in float64,
@@ -197,5 +280,5 @@ def preprocess_host(
 
     slices, boxes = host_pipeline.preprocess(volume, resolution=resolution)
     normalized = host_pipeline.normalize_hu(slices).astype(np.float32)
-    out = torch.from_numpy(normalized).to(torch.device(device)).to(compute_dtype)
+    out = torch.from_numpy(normalized).to(resolve_device(device)).to(compute_dtype)
     return out, np.asarray(boxes)

@@ -6,8 +6,10 @@ goes through ``lungmask-torch SERIES OUT --cpu`` and ``lungmask SERIES OUT``
 at float32 with the crafted laterality weights (wf=2, carried into the port
 by ``models/convert.from_jax_params``). The masks must be equal voxel for
 voxel, with ``.nii.gz`` and with ``.dcm`` output; for ``.dcm`` every slice
-file's tags must be equal too, except the UIDs each writer draws fresh
-(0002|0003, 0008|0018, 0020|000e).
+file's tags must be equal too, the UIDs each writer draws and the file-meta
+group length (0002|0000, which follows the SOP UID's length) included:
+``dicom.generate_uid`` of both packages restarts one counter for each CLI
+run, so both writers draw the same UIDs whatever ran before in the process.
 
 Tolerance: none.
 """
@@ -22,6 +24,7 @@ import pytest
 import torch_parity
 import lungmask_tpu.cli
 import lungmask_tpu_torch.cli
+from lungmask_tpu.io import dicom as jdicom
 from lungmask_tpu.io import loader as jloader
 from lungmask_tpu_torch import LMInferer
 from lungmask_tpu_torch.io import dicom, loader
@@ -29,7 +32,6 @@ from lungmask_tpu_torch.models import convert, synthetic
 
 N_SLICES, SIZE = 4, 64
 UID_ROOT = "1.2.826.0.1.3680043.10.1464.5"
-FRESH_UIDS = ("0002|0003", "0008|0018", "0020|000e")
 PATIENT_TAGS = {
     (0x0008, 0x0020): "20260102",  # StudyDate
     (0x0008, 0x0050): "ACC42",  # AccessionNumber
@@ -61,8 +63,15 @@ def series(tmp_path_factory):
     return str(root), vol
 
 
+def _restarted_uids():
+    """``generate_uid`` for one CLI run: the same sequence every time."""
+    counter = iter(range(1, 10**6))
+    return lambda: f"{UID_ROOT}.9.{next(counter)}"
+
+
 def _run_both(src, out_dir, out_name, weights, extra=()):
-    """Both CLIs at float32 on ``src``; returns the (port, jax) output paths."""
+    """Both CLIs at float32 on ``src``, each with both packages' UID
+    sequences restarted; returns the (port, jax) output paths."""
     outs = []
     for name, mod, flags in (
         ("port", lungmask_tpu_torch.cli, ["--cpu"]),
@@ -72,6 +81,8 @@ def _run_both(src, out_dir, out_name, weights, extra=()):
         outs.append(str(out_dir / name / out_name))
         with mock.patch.object(
             mod, "LMInferer", functools.partial(mod.LMInferer, precision="float32")
+        ), mock.patch.object(dicom, "generate_uid", _restarted_uids()), mock.patch.object(
+            jdicom, "generate_uid", _restarted_uids()
         ):
             mod.main([src, outs[-1], "--modelpath", weights, "--noprogress", *flags, *extra])
     return outs
@@ -100,9 +111,8 @@ def test_cli_dicom_to_dicom_equals_jax(weights, series, tmp_path):
         got = dicom.read_file(os.path.join(os.path.dirname(port), leaf))
         want = dicom.read_file(os.path.join(os.path.dirname(jax), leaf))
         np.testing.assert_array_equal(got.pixels, want.pixels)
-        assert sorted(got.tags) == sorted(want.tags)
-        assert {k: v for k, v in got.tags.items() if k not in FRESH_UIDS} == {
-            k: v for k, v in want.tags.items() if k not in FRESH_UIDS}
+        assert got.tags == want.tags
+        assert got.get("0008|0018").startswith(f"{UID_ROOT}.9.")
         assert got.get("0010|0010") == "DOE^JANE" and got.get("0020|0010") == "S7"
         assert got.get("0008|103e") == "Created with lungmask"
         assert got.get("0028|1050") == "1" and got.get("0028|1051") == "2"
@@ -110,7 +120,7 @@ def test_cli_dicom_to_dicom_equals_jax(weights, series, tmp_path):
         assert got.get("0020|000d") == f"{UID_ROOT}.1"
     back = loader.read_dicoms(os.path.dirname(port), read_metadata=True)[0]
     jback = jloader.read_dicoms(os.path.dirname(jax), read_metadata=True)[0]
-    torch_parity.assert_same_image(back, jback, mask_tags=FRESH_UIDS)
+    torch_parity.assert_same_image(back, jback)
     assert set(np.unique(back.array)) == {0, 1, 2}
 
 

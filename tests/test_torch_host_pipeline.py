@@ -61,7 +61,7 @@ def test_preprocess_host_equals_jax(shape, bf16):
     the stack JAX's host mode uploads, rounded to the compute dtype."""
     vol = _volume(3, *shape, seed=1)
     dtype = torch.bfloat16 if bf16 else torch.float32
-    got, boxes = preprocess.preprocess_host(vol, compute_dtype=dtype)
+    got, boxes = preprocess.preprocess_host(vol, compute_dtype=dtype, device="cpu")
     slices, want_boxes = jhost.preprocess(vol, resolution=(256, 256))
     want = jhost.normalize_hu(slices).astype(np.float32)
     if bf16:
@@ -70,7 +70,7 @@ def test_preprocess_host_equals_jax(shape, bf16):
     np.testing.assert_array_equal(got.float().numpy(), want)
     np.testing.assert_array_equal(boxes, np.asarray(want_boxes))
     if min(shape) < 128:
-        hyb, hyb_boxes = preprocess.preprocess_hybrid(vol, compute_dtype=dtype)
+        hyb, hyb_boxes = preprocess.preprocess_hybrid(vol, compute_dtype=dtype, device="cpu")
         jhyb, jhyb_boxes = jpre.preprocess_hybrid(vol, compute_dtype=jnp.bfloat16 if bf16 else None)
         np.testing.assert_array_equal(hyb.float().numpy(), np.asarray(jhyb, np.float32))
         np.testing.assert_array_equal(hyb_boxes, jhyb_boxes)

@@ -39,7 +39,10 @@ def test_port_imports_without_jax_or_tqdm():
         "import lungmask_tpu_torch.transforms.host_pipeline\n"
         "import lungmask_tpu_torch.runtime.cohort, lungmask_tpu_torch.runtime.serve\n"
         "import lungmask_tpu_torch.metrics\n"
-        "import lungmask_tpu_torch.ops.kernels.bodymask\n"
+        "import lungmask_tpu_torch.ops.kernels.bodymask, lungmask_tpu_torch.ops.kernels.stencil\n"
+        "import lungmask_tpu_torch.train\n"
+        "from lungmask_tpu_torch.train import (augment, checkpoint, data, finetune, loop, optim,\n"
+        "                                      store, trainer)\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm', 'PIL'))\n"
         "assert not bad, bad\n"
@@ -47,6 +50,16 @@ def test_port_imports_without_jax_or_tqdm():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok 0.1.0")
+
+
+def test_finetune_entry_point_without_jax():
+    res = _run(
+        "import runpy\n"
+        "sys.argv = ['finetune', '--help']\n"
+        "runpy.run_module('lungmask_tpu_torch.train.finetune', run_name='__main__')\n"
+    )
+    assert res.returncode == 0, res.stderr
+    assert "--cpu" in res.stdout and "--resolution" in res.stdout
 
 
 @pytest.mark.parametrize("flag", ["--help", "--version"])

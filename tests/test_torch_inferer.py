@@ -122,8 +122,7 @@ def test_no_silent_cpu_fallback(weights):
 @pytest.mark.parametrize(
     "kwargs, item",
     [
-        ({"preprocessing": "device"}, 5),
-        ({"preprocessing": "sharded"}, 5),
+        ({"preprocessing": "sharded"}, 10),
         ({"mesh": object()}, 10),
     ],
 )

@@ -118,6 +118,6 @@ def test_small_slices_wait_for_host_pipeline():
     want, want_boxes = jpre.preprocess_hybrid(vol)
     np.testing.assert_array_equal(boxes, want_boxes)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.float32))
-    host, host_boxes = tpre.preprocess_host(vol, compute_dtype=torch.float32)
+    host, host_boxes = tpre.preprocess_host(vol, compute_dtype=torch.float32, device="cpu")
     np.testing.assert_array_equal(host.numpy(), got.numpy())
     np.testing.assert_array_equal(host_boxes, boxes)
