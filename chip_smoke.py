@@ -49,7 +49,24 @@ seed, with crafted weights:
   (the stencil phase holds K2 and K3 there too); train-step time, slices/s,
   peak memory and a profile of three steps; and the ``python -m
   lungmask_tpu_torch.train.finetune`` entry point on phantom NIfTI pairs,
-  its weights applied by ``LMInferer``.
+  its weights applied by ``LMInferer``;
+* the U-Net variants — ``residual``, ``upconv`` and both, at production
+  width from seeded reference-layout state dicts
+  (``synthetic.reference_state_dict``): on one 32-slice chunk, GPU f32
+  logits of its first 8 slices against CPU f32, bf16 argmax against f32
+  on all 32, K2/K3 launches per
+  forward (4/4, 4/0 for upconv), and ``LMInferer(modelpath=<.pth>)`` on the
+  192-slice phantom;
+* the device mesh — ``LMInferer(mesh=)`` over ``make_mesh()`` (every card)
+  and over a two-way data mesh on one card (``[cuda:0, cuda:0]``, batch 64:
+  each shard runs the unsharded chunk's 32 slices), sharded preprocessing,
+  exact and device postprocessing, single and fused, every mask equal to
+  the unsharded ``preprocessing="device"`` inferer's;
+  ``make_sharded_postprocess`` against ``postprocess_device`` on the card;
+  ``fit(mesh=)`` next to the unsharded fit, one f32 step's loss and
+  gradients against the plain loss at the shards' shapes (1e-5) and the
+  unsharded step's, and one step through a
+  one-process NCCL group (``parallel.multihost``).
 
 Each path's calls run with every kernel's launch count set to 0 just before
 them and read just after. Kernel times are CUDA-event medians over runs of
@@ -63,8 +80,9 @@ The kernels line gives K2 and K3 per 32-slice inference chunk and K2ᵀ and
 K3ᵀ per train step of batch 8, each summed over the U-Net's four shapes.
 
 Phases: device, build, kernel, unet, stencil, fused, inferer, cli, dicom,
-postdev, cohort, serve, devprep, train; each prints its results on its own
-lines. The second-to-last line is a JSON
+postdev, cohort, serve, devprep, train, variants, mesh; each prints its
+results on its own lines, and fails if it left torch's current CUDA device
+changed (the launchers must restore the caller's device). The second-to-last line is a JSON
 object describing the kernels; the last line is ``{"ok": true, "device":
 {...}}`` and is printed only when every phase passed. Exits non-zero,
 printing no result, when no CUDA device is available or any phase fails.
@@ -121,6 +139,17 @@ TRAIN_SLICES, EVAL_SLICES = 64, 32  # phantom[:64] to train, phantom[64:96] to e
 TRAIN_EPOCHS = 2  # 16 steps
 TRAIN_PEAK_LR = 1e-3  # a fresh net: default_optimizer's 1e-4 is a fine-tuning rate
 RESUME_RTOL = 1e-3
+# The U-Net variants: (residual, up_mode) of the reference-layout state dict.
+VARIANTS = {"residual": (True, "upsample"), "upconv": (False, "upconv"),
+            "residual+upconv": (True, "upconv")}
+VARIANT_SEED = 0
+# Slices of the chunk whose f32 logits are also computed on the CPU (the
+# whole chunk took 12-20 s per variant on the card's host).
+VARIANT_CPU_SLICES = 8
+MESH_BATCH = 64  # the two-way mesh's chunk: 32 slices per shard, as unsharded
+MESH_TRAIN_SLICES = 32  # fit(mesh=): 4 steps of batch 8 (4 per shard)
+GRAD_RTOL = 1e-5  # one f32 train step, sharded vs unsharded (the CPU tests' bound)
+GRAD_GROSS = 1e-2  # the same at other batch shapes (see _mesh_train)
 REPS = 20  # back-to-back launches per CUDA-event pair
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -306,7 +335,10 @@ class Smoke:
     def phase(self, name, fn):
         t0 = time.perf_counter()
         try:
+            before = self.torch.cuda.current_device()
             fn()
+            after = self.torch.cuda.current_device()
+            self.check(after == before, f"the current CUDA device moved from {before} to {after}")
             print(f"[{name}] ok in {time.perf_counter() - t0:.3f} s", flush=True)
         except Exception as e:  # a failed phase is reported, the run goes on
             traceback.print_exc()
@@ -1391,6 +1423,303 @@ class Smoke:
               f"{top or 'no device events recorded'}")
 
 
+    def variants(self):
+        """The residual, upconv and residual+upconv U-Nets at production
+        width (wf=6) from seeded reference-layout state dicts."""
+        import numpy as np
+
+        torch = self.torch
+        from lungmask_tpu_torch import LMInferer
+        from lungmask_tpu_torch.models import convert, synthetic, unet
+        from lungmask_tpu_torch.transforms import preprocess
+
+        dev = torch.device("cuda", 0)
+        vol = self.state["phantom"]
+        x, _ = preprocess.preprocess_hybrid(vol[:CHUNK], device=dev)
+        x = x.unsqueeze(-1)  # one 32-slice chunk, NHWC float32
+        cpu_x = x[:VARIANT_CPU_SLICES].cpu()
+        dicts = {}
+        for name, (residual, up_mode) in VARIANTS.items():
+            sd = synthetic.reference_state_dict(3, residual=residual, up_mode=up_mode,
+                                                seed=VARIANT_SEED)
+            dicts[name] = sd
+            params = convert.convert_state_dict(sd)
+            gpu32 = unet.UNet(convert.from_jax_params(params, dev), torch.float32).eval()
+            gpu16 = unet.UNet(convert.from_jax_params(params, dev), torch.bfloat16).eval()
+            cpu32 = unet.UNet(convert.from_jax_params(params), torch.float32).eval()
+            with torch.inference_mode():
+                _reset_launches()
+                lg = gpu32(x)
+                torch.cuda.synchronize()
+                launches = _launches()
+                t0 = time.perf_counter()
+                lc = cpu32(cpu_x)
+                t_cpu = time.perf_counter() - t0
+                lg_cpu = lg[:VARIANT_CPU_SLICES].cpu()
+                diff = (lg_cpu - lc).abs()
+                within = bool((diff <= UNET_LOGIT_ATOL + UNET_LOGIT_RTOL * lc.abs()).all())
+                same_argmax = torch.equal(lg_cpu.argmax(-1), lc.argmax(-1))
+                a16 = unet.unet_argmax(gpu16, x)
+                agree = float((a16 == lg.argmax(-1)).float().mean())
+                ms16 = _median_ms(torch, lambda: unet.unet_argmax(gpu16, x), 5, reps=1)
+                ms32 = _median_ms(torch, lambda: unet.unet_argmax(gpu32, x), 5, reps=1)
+            am = lg.argmax(-1).reshape(-1).cpu().numpy()
+            classes = np.bincount(am, minlength=3) / am.size
+            want = {"bodymask_labels": 0, "avg_pool2": 4, "bilinear_up2": 0 if up_mode == "upconv" else 4}
+            print(f"[variants] {name}: {CHUNK} slices 256² on the GPU, the first "
+                  f"{VARIANT_CPU_SLICES} in f32 (TF32 off) vs CPU f32 ({t_cpu:.2f} s): "
+                  f"max |dlogit| {float(diff.max()):.3e} of max |logit| {float(lc.abs().max()):.3e} "
+                  f"(bound {UNET_LOGIT_ATOL} + {UNET_LOGIT_RTOL}*|x|), identical argmax "
+                  f"{same_argmax}, class shares {np.round(classes, 4).tolist()} | bf16 argmax "
+                  f"agreement with f32 {agree:.6f} | launches per forward {launches} | "
+                  f"forward+argmax bf16 {ms16:.3f} ms, f32 {ms32:.3f} ms ({self.state['smi']})")
+            self.check(within, f"{name}: GPU f32 logits outside the bound")
+            self.check(same_argmax, f"{name}: GPU f32 argmax differs from CPU f32")
+            self.check(agree >= BF16_MIN_AGREEMENT, f"{name}: bf16 agreement {agree}")
+            self.check(launches == want, f"{name}: launches {launches}, expected {want}")
+
+        # A variant checkpoint as the reference ships one: a .pth state dict.
+        path = os.path.join(self.state["tmp"], "residual_upconv.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in dicts["residual+upconv"].items()}, path)
+        inferer = LMInferer(modelpath=path, tqdm_disable=True)
+        inferer.apply(vol[:CHUNK])  # warm-up
+        _reset_launches()
+        t0 = time.perf_counter()
+        mask = inferer.apply(vol)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        labels = sorted(int(v) for v in np.unique(mask))
+        chunks = -(-len(vol) // CHUNK)
+        want = {"bodymask_labels": 1, "avg_pool2": 4 * chunks, "bilinear_up2": 0}
+        print(f"[variants] LMInferer(modelpath=<residual+upconv .pth>).apply of the {len(vol)}-slice "
+              f"phantom: {wall:.4f} s | launches {launches} | labels {labels} | shape {mask.shape} "
+              f"{mask.dtype}")
+        self.check(mask.shape == vol.shape and mask.dtype == np.uint8, f"mask {mask.shape}")
+        self.check(set(labels) <= {0, 1, 2}, f"labels {labels}")
+        self.check(launches == want, f"launches {launches}, expected {want}")
+
+    def mesh(self):
+        """``LMInferer(mesh=)``, the sharded cleanup, ``fit(mesh=)`` and a
+        one-process NCCL group on the card."""
+        import numpy as np
+
+        torch = self.torch
+        from lungmask_tpu_torch import LMInferer
+        from lungmask_tpu_torch.parallel import make_mesh, make_sharded_postprocess, multihost
+        from lungmask_tpu_torch.parallel.mesh import shard_rows
+        from lungmask_tpu_torch.transforms.postprocess_device import postprocess_device
+
+        dev = torch.device("cuda", 0)
+        vol = self.state["phantom"]
+        meshes = {"make_mesh()": (make_mesh(), None),
+                  "data-2 on cuda:0": (make_mesh(devices=[dev, dev]), MESH_BATCH)}
+        ndata = {k: m.shape["data"] for k, (m, _) in meshes.items()}
+        self.check(ndata["make_mesh()"] == torch.cuda.device_count(), f"meshes {ndata}")
+        chunks = -(-len(vol) // CHUNK)
+        pred = None
+        for fused in (False, True):
+            kw = (dict(modelname="LTRCLobes", fillmodel="R231") if fused
+                  else dict(modelpath=self.state["weights"]))
+            for post in ("exact", "device"):
+                ref_inf = LMInferer(tqdm_disable=True, preprocessing="device",
+                                    postprocessing_mode=post, **kw)
+                ref = ref_inf.apply(vol)
+                if not fused and post == "device":
+                    pred = ref_inf.forward_preprocessed(ref_inf.preprocess_image(vol))
+                note = ""
+                if not fused and post == "exact":
+                    note = (f" (that mask's voxel agreement with the hybrid main-path mask "
+                            f"{float((ref == self.state['mask']).mean()):.6f})")
+                for mname, (mesh, batch) in meshes.items():
+                    inf = LMInferer(tqdm_disable=True, mesh=mesh, batch_size=batch,
+                                    postprocessing_mode=post, **kw)
+                    self.check(inf.preprocessing == "sharded", f"preprocessing {inf.preprocessing}")
+                    inf.apply(vol[:CHUNK])  # warm-up
+                    _reset_launches()
+                    inf.timings.reset()
+                    t0 = time.perf_counter()
+                    mask = inf.apply(vol)
+                    wall = time.perf_counter() - t0
+                    launches = _launches(FORWARD + BACKWARD)
+                    models = 2 if fused else 1
+                    want = {"bodymask_labels": ndata[mname], "avg_pool2": 4 * chunks * models,
+                            "bilinear_up2": 4 * chunks * models, "avg_pool2_bwd": 0,
+                            "bilinear_up2_bwd": 0}
+                    same = bool(np.array_equal(mask, ref))
+                    st = inf.timings.summary()
+                    stages = " ".join(f"{k} {st.get(k, 0.0):.4f}" for k in (
+                        "preprocess", "unet", "postprocess", "paste_back", "fusion_postprocess"))
+                    print(f"[mesh] {mname} {'fused' if fused else 'single'} {post}: {wall:.4f} s | "
+                          f"stage s: {stages} | launches {launches} | equals the unsharded "
+                          f"preprocessing='device' mask: {same}{note}")
+                    self.check(same, f"{mname} {post} {'fused' if fused else 'single'}: the mesh's "
+                                     "mask differs from the unsharded mask")
+                    self.check(launches == want, f"launches {launches}, expected {want}")
+
+        # The sharded cleanup of one class map on the card.
+        two = meshes["data-2 on cuda:0"][0]
+        step = make_sharded_postprocess(two, 3)
+        single = postprocess_device(pred, 3)
+        slabs = shard_rows(two, pred)
+        step(slabs)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = step(slabs)
+        torch.cuda.synchronize()
+        t_sharded = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        postprocess_device(pred, 3)
+        torch.cuda.synchronize()
+        t_single = time.perf_counter() - t0
+        same = torch.equal(torch.cat(got), single)
+        print(f"[mesh] make_sharded_postprocess of one {tuple(pred.shape)} class map over the "
+              f"data-2 mesh: {t_sharded:.4f} s against postprocess_device {t_single:.4f} s | "
+              f"bit-equal {same}")
+        self.check(same and all(g.is_cuda for g in got), "the sharded cleanup differs")
+        self._mesh_train(two)
+
+    def _mesh_train(self, two):
+        """``fit(mesh=)`` beside the unsharded fit (bf16, 4 steps of batch 8),
+        one f32 step's loss and gradients against plain torch and the
+        unsharded step, and one step through a one-process NCCL group."""
+        import socket
+
+        import numpy as np
+
+        torch = self.torch
+        from lungmask_tpu_torch.models import unet
+        from lungmask_tpu_torch.parallel import multihost
+        from lungmask_tpu_torch.train import default_optimizer, fit, init_train_state
+        from lungmask_tpu_torch.train import make_train_step
+        from lungmask_tpu_torch.train.data import SliceDataset
+
+        dev = torch.device("cuda", 0)
+        vol, mask = self.state["phantom"], self.state["mask"]
+        ds = SliceDataset([(vol[:MESH_TRAIN_SLICES], mask[:MESH_TRAIN_SLICES])], device=dev)
+        params = unet.init_params(3, generator=torch.Generator().manual_seed(0))
+        steps = MESH_TRAIN_SLICES // TRAIN_BATCH
+        kw = dict(batch_size=TRAIN_BATCH, optimizer=default_optimizer(steps, peak_lr=TRAIN_PEAK_LR),
+                  seed=0, log_every=1, compute_dtype=torch.bfloat16)
+        runs = {}
+        for name, extra in (("unsharded", dict(device=dev)), ("data-2", dict(mesh=two))):
+            _reset_launches()
+            t0 = time.perf_counter()
+            res = fit(params, ds, **kw, **extra)
+            torch.cuda.synchronize()
+            runs[name] = ([h["loss"] for h in res.history if "loss" in h],
+                          time.perf_counter() - t0, _launches(FORWARD + BACKWARD))
+        losses, wall, launches = runs["data-2"]
+        want = {"bodymask_labels": 0, "avg_pool2": 8 * steps, "bilinear_up2": 8 * steps,
+                "avg_pool2_bwd": 8 * steps, "bilinear_up2_bwd": 8 * steps}
+        print(f"[mesh] fit(mesh=data-2 on cuda:0), {steps} bf16 steps of batch {TRAIN_BATCH} "
+              f"({TRAIN_BATCH // 2} per shard, wf=6, 256²): {wall:.4f} s | launches {launches} "
+              f"(K2/K3/K2ᵀ/K3ᵀ 4/4/4/4 per shard and step) | losses "
+              + ", ".join(f"{v:.5f}" for v in losses) + " | unsharded fit: "
+              + ", ".join(f"{v:.5f}" for v in runs["unsharded"][0])
+              + f" in {runs['unsharded'][1]:.4f} s")
+        self.check(launches == want, f"fit(mesh=) launches {launches}, expected {want}")
+        self.check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
+
+        class Recorder:  # keeps the step's gradients, moves no weight
+            def init(self, params):
+                return None
+
+            def update(self, grads, state, params):
+                self.grads = {k: g.clone() for k, g in grads.items()}
+                return {k: torch.zeros_like(g) for k, g in grads.items()}, state
+
+        im, lb = next(ds.batches(TRAIN_BATCH, seed=0))
+        lb = np.array(lb)
+        lb[TRAIN_BATCH // 2 :] = 0  # halves with other classes: averaging their Dice is off
+
+        def grads(mesh):
+            rec = Recorder()
+            state = init_train_state(params, rec, dev)
+            _, loss = make_train_step(rec, mesh=mesh, compute_dtype=torch.float32)(state, im, lb)
+            return float(loss), rec.grads
+
+        def worst(a, b):  # the largest difference of a leaf, over that leaf's largest value
+            return max(float((a[k] - g).abs().max() / g.abs().max()) for k, g in b.items())
+
+        half = TRAIN_BATCH // 2
+
+        def plain_at_parts(x, y, dice_weight=0.5, eps=1e-6):
+            """The whole batch's loss and gradients in plain torch, with the
+            model run on each half at the shards' shapes: the sums of the
+            cross-entropy and of the Dice terms over both halves, one
+            backward. Against the unsharded step on the whole batch, the
+            convolutions' float32 backward at batch 4 differs from batch 8's
+            (6.8e-4 of a leaf's largest gradient on the CPU at wf=2, 256²);
+            at the same shapes, only the order of the sums can."""
+            model = init_train_state(params, Recorder(), dev).model
+            x, y = torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev).long()
+            with torch.inference_mode(False), torch.enable_grad(), \
+                    unet.conv_flags(torch.float32):
+                sums = 0
+                for i in (0, half):
+                    logits = model.logits(x[i : i + half], torch.float32)
+                    yi = y[i : i + half]
+                    probs = torch.softmax(logits, -1)
+                    onehot = torch.nn.functional.one_hot(yi, logits.shape[-1]).float()
+                    nll = -torch.log_softmax(logits, -1).gather(-1, yi.unsqueeze(-1)).sum()
+                    sums = sums + torch.cat([nll.view(1), (probs * onehot).sum((0, 1, 2)),
+                                             (probs + onehot).sum((0, 1, 2))])
+                c = (sums.shape[0] - 1) // 2
+                dice = 1 - torch.mean((2 * sums[1 : 1 + c] + eps) / (sums[1 + c :] + eps))
+                loss = (1 - dice_weight) * sums[0] / y.numel() + dice_weight * dice
+                loss.backward()
+            return float(loss.detach()), {k: p.grad for k, p in model.named_parameters()}
+
+        l_ref, g_ref = grads(None)
+        l_two, g_two = grads(two)
+        l_plain, g_plain = plain_at_parts(im, lb)
+        plain_worst = worst(g_two, g_plain)
+        whole_worst = worst(g_two, g_ref)
+        print(f"[mesh] one f32 step (batch {TRAIN_BATCH}, wf=6): loss data-2 {l_two:.7f} vs "
+              f"unsharded {l_ref:.7f}, plain at the shards' shapes {l_plain:.7f} | gradients "
+              f"against the plain ones: worst leaf difference {plain_worst:.3e} of its largest "
+              f"(bound {GRAD_RTOL}) | against the unsharded batch of {TRAIN_BATCH}: "
+              f"{whole_worst:.3e} (bound {GRAD_GROSS})")
+        self.check(abs(l_two - l_ref) <= GRAD_RTOL * abs(l_ref), "the sharded f32 loss differs")
+        self.check(abs(l_two - l_plain) <= GRAD_RTOL * abs(l_plain), "the sharded f32 loss differs")
+        self.check(plain_worst <= GRAD_RTOL, f"the sharded f32 gradients differ by {plain_worst}")
+        self.check(whole_worst <= GRAD_GROSS, f"the sharded f32 gradients differ by {whole_worst}")
+
+        # Time the sharded bf16 step after a warm one.
+        state = init_train_state(params, kw["optimizer"], dev)
+        step_fn = make_train_step(kw["optimizer"], mesh=two, compute_dtype=torch.bfloat16)
+        x, y = torch.from_numpy(im).to(dev), torch.from_numpy(lb).to(dev)
+        state, _ = step_fn(state, x, y)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, x, y)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        print(f"[mesh] sharded train step (data-2 on one card, batch {TRAIN_BATCH}, bf16): median "
+              f"{float(np.median(times)):.3f} ms of 5 (range {min(times):.3f}-{max(times):.3f}) "
+              f"({self.state['smi']})")
+
+        # One step through a one-process NCCL group: the all-reduce path.
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ok = multihost.initialize_multihost(f"127.0.0.1:{port}", num_processes=1, process_id=0)
+        try:
+            backend = torch.distributed.get_backend()
+            l_grp, g_grp = grads(two)
+        finally:
+            torch.distributed.destroy_process_group()
+        grp_worst = worst(g_grp, g_two)
+        print(f"[mesh] one-process {backend} group (initialize_multihost -> {ok}): f32 step loss "
+              f"{l_grp:.7f} vs {l_two:.7f} without the group, worst gradient leaf difference "
+              f"{grp_worst:.3e}")
+        self.check(ok and backend == "nccl", f"group {ok} {backend}")
+        self.check(abs(l_grp - l_two) <= GRAD_RTOL * abs(l_two) and grp_worst <= GRAD_RTOL,
+                   "the step through the group differs")
+
+
 def main() -> int:
     import torch
 
@@ -1416,9 +1745,13 @@ def main() -> int:
             "devprep": {"phantom": "kernel", "inferer": "inferer", "mask": "inferer",
                         "smi": "device"},
             "train": {"phantom": "kernel", "mask": "inferer", "smi": "device"},
+            "variants": {"phantom": "kernel", "smi": "device"},
+            "mesh": {"phantom": "kernel", "mask": "inferer", "weights": "inferer",
+                     "cache": "fused", "smi": "device"},
         }
         for name in ("device", "build", "kernel", "unet", "stencil", "fused", "inferer", "cli",
-                     "dicom", "postdev", "cohort", "serve", "devprep", "train"):
+                     "dicom", "postdev", "cohort", "serve", "devprep", "train", "variants",
+                     "mesh"):
             missing = [(key, maker) for key, maker in needs.get(name, {}).items()
                        if key not in smoke.state]
             if missing:

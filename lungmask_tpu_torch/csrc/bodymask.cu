@@ -52,6 +52,21 @@
 
 namespace {
 
+// Makes `device` current for a launch and restores the caller's device on
+// every return path: the runtime's current device is per host thread and
+// torch reads it, so a launch on a tensor of another card must not move it.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err;
+  explicit DeviceGuard(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 constexpr int N = 128;
 constexpr int THREADS = N;  // one thread per row
 constexpr int WARPS = THREADS / 32;
@@ -347,10 +362,10 @@ int lm_bodymask_labels(const void* hu, void* labels, void* mask, int64_t batch,
   if (batch > 0x7fffffff) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(labels) | reinterpret_cast<uintptr_t>(mask)) & 15)
     return (int)cudaErrorMisalignedAddress;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bodymask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sizeof(Smem));
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  const cudaError_t err = cudaFuncSetAttribute(
+      bodymask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
   if (err != cudaSuccess) return (int)err;
   bodymask_kernel<<<(unsigned)batch, THREADS, sizeof(Smem), (cudaStream_t)stream>>>(
       static_cast<const float*>(hu), static_cast<int32_t*>(labels),

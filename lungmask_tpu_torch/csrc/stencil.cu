@@ -76,6 +76,21 @@
 
 namespace {
 
+// Makes `device` current for a launch and restores the caller's device on
+// every return path: the runtime's current device is per host thread and
+// torch reads it, so a launch on a tensor of another card must not move it.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err;
+  explicit DeviceGuard(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 constexpr int THREADS = 256;
 constexpr int64_t MAX_BLOCKS = 1 << 16;
 constexpr int64_t MAX_SMEM = 232448;  // a block's shared memory on sm_90
@@ -408,8 +423,8 @@ extern "C" {
 int lm_avg_pool2(const void* x, void* y, int64_t n, int64_t h, int64_t w, int64_t c, int dtype,
                  int device, void* stream) {
   if (n * (h / 2) * (w / 2) * c <= 0) return 0;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return pool<float>(x, y, n, h, w, c, s);
   if (dtype == 1) return pool<__nv_bfloat16>(x, y, n, h, w, c, s);
@@ -421,8 +436,8 @@ int lm_bilinear_up2(const void* x, void* y, int64_t n, int64_t h, int64_t w, int
                     int dtype, int vec, int rows, int tile_w, int cvt, int threads,
                     int device, void* stream) {
   if (n * h * w * c <= 0) return 0;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return up2<float>(x, y, n, h, w, c, vec, rows, tile_w, cvt, threads, s);
   if (dtype == 1)
@@ -436,8 +451,8 @@ int lm_bilinear_up2(const void* x, void* y, int64_t n, int64_t h, int64_t w, int
 int lm_avg_pool2_bwd(const void* g, void* dx, int64_t n, int64_t h, int64_t w, int64_t c,
                      int dtype, int device, void* stream) {
   if (n * h * w * c <= 0) return 0;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return adjoint<float>(g, dx, n, h, w, c, s, avg_pool2_bwd_kernel<float, 4>,
@@ -453,8 +468,8 @@ int lm_avg_pool2_bwd(const void* g, void* dx, int64_t n, int64_t h, int64_t w, i
 int lm_bilinear_up2_bwd(const void* g, void* dx, int64_t n, int64_t h, int64_t w, int64_t c,
                         int dtype, int device, void* stream) {
   if (n * h * w * c <= 0) return 0;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return adjoint<float>(g, dx, n, h, w, c, s, bilinear_up2_bwd_kernel<float, 4>,

@@ -15,6 +15,12 @@ paste-back. With ``postprocessing_mode="device"`` the class map stays on the
 device and is cleaned there (``transforms/postprocess_device.py``); only the
 crumb-packed result comes down.
 
+With a device mesh (``mesh=``, ``parallel/mesh.py``) the slices split over
+its data axis: preprocessing defaults to ``"sharded"`` (device mode, each
+slab on its own device), the U-Net runs as ``parallel.ShardedUNetRunner``
+and device postprocessing as ``parallel.make_sharded_postprocess``, the
+class map staying in slabs until the cleaned mask comes down.
+
 The fused two-model mode (``fillmodel=``, the CLI's ``LTRCLobes_R231``)
 preprocesses once, runs both U-Nets chunk by chunk over the one stack,
 finishes each model's mask on its own (postprocess + paste + reorient, on
@@ -25,7 +31,9 @@ reference mask.py:223-232).
 
 Device rule: the device is resolved once. ``force_cpu=True`` or
 ``device="cpu"`` mean the CPU; otherwise a CUDA device is required and its
-absence raises — the inferer never quietly continues on the CPU.
+absence raises — the inferer never quietly continues on the CPU. With a
+mesh, the mesh's devices are the inferer's (``device`` is its first data
+device).
 """
 
 from __future__ import annotations
@@ -43,8 +51,10 @@ from lungmask_tpu_torch.io.image import MedicalImage, reorient
 from lungmask_tpu_torch.logger import logger
 from lungmask_tpu_torch.models.registry import MODEL_URLS, get_model
 from lungmask_tpu_torch.ops import native, resample
+from lungmask_tpu_torch.parallel.sharded import ShardedUNetRunner, make_sharded_postprocess
 from lungmask_tpu_torch.runtime.engine import (
     UNetRunner,
+    pack_bits,
     run_pair,
     run_pair_numpy,
     unpack_crumbs,
@@ -58,12 +68,6 @@ from lungmask_tpu_torch.utils.device import resolve_device
 from lungmask_tpu_torch.utils.profiling import StageTimer
 
 ImageLike = Union[MedicalImage, np.ndarray]
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to lungmask_tpu_torch yet (ROADMAP.md queue 1, item {item})"
-    )
 
 
 class _NullBar:
@@ -100,14 +104,19 @@ class LMInferer:
             batch_size: slices per forward (default 32).
             volume_postprocessing: connected-component cleanup toggle.
             tqdm_disable: disable progress output (tqdm is optional).
-            preprocessing: None or 'hybrid' (the default: device bodymask
-                boxes, float64 host resample), 'host' (the reference's
-                per-slice scipy chain; bit-equal to 'hybrid') or 'device'
-                (all of it on the device: the same boxes, a float32 gather
-                resample). 'sharded' is not ported yet (ROADMAP.md queue 1,
-                item 10).
+            preprocessing: None (default) resolves to 'sharded' with a mesh,
+                else 'hybrid' (device bodymask boxes, float64 host
+                resample); 'host' (the reference's per-slice scipy chain;
+                bit-equal to 'hybrid'), 'device' (all of it on the device:
+                the same boxes, a float32 gather resample) or 'sharded'
+                ('device' split over the mesh's data axis; needs ``mesh``).
+                An explicit value is honoured with a mesh too.
             precision: 'bfloat16' (default) or 'float32' (cuDNN TF32 off).
-            mesh: multi-device sharding — not ported yet (item 10).
+            mesh: a ``parallel.Mesh`` (``parallel.make_mesh``): the slices
+                split over its data axis for the U-Net, for the default
+                preprocessing and for device postprocessing. ``batch_size``
+                is then per chunk over the whole mesh (default 32 per
+                device).
             postprocessing_mode: 'exact' (the host C++ core, bit-faithful to
                 the reference) or 'device' (largest component + hole fill on
                 the inferer's device, without the small-region merge; see
@@ -122,12 +131,12 @@ class LMInferer:
             raise ValueError(
                 f"Modelname not found. Please choose from: {list(MODEL_URLS)}"
             )
-        if preprocessing == "sharded":
-            raise _not_ported("preprocessing='sharded'", 10)
-        if preprocessing not in (None, "hybrid", "host", "device"):
+        if preprocessing not in (None, "hybrid", "host", "device", "sharded"):
             raise ValueError(f"unknown preprocessing {preprocessing!r}")
-        if mesh is not None:
-            raise _not_ported("multi-device sharding (mesh=)", 10)
+        if preprocessing is None:
+            preprocessing = "sharded" if mesh is not None else "hybrid"
+        if preprocessing == "sharded" and mesh is None:
+            raise ValueError("preprocessing='sharded' requires mesh=")
         if postprocessing_mode not in ("exact", "device"):
             raise ValueError(
                 f"postprocessing_mode must be 'exact' or 'device', got {postprocessing_mode!r}"
@@ -135,7 +144,8 @@ class LMInferer:
         if precision not in ("bfloat16", "float32"):
             raise ValueError(f"precision must be 'bfloat16' or 'float32', got {precision!r}")
 
-        self.device = resolve_device(device, force_cpu)
+        self.mesh = mesh
+        self.device = resolve_device(device, force_cpu) if mesh is None else mesh.data_devices[0]
         self._compute_dtype = torch.bfloat16 if precision == "bfloat16" else torch.float32
         if modelpath is not None:
             modelname = os.path.basename(modelpath)
@@ -146,13 +156,17 @@ class LMInferer:
         self.batch_size = batch_size
         self.volume_postprocessing = volume_postprocessing
         self.tqdm_disable = tqdm_disable
-        self.preprocessing = preprocessing or "hybrid"
+        self.preprocessing = preprocessing
         self.postprocessing_mode = postprocessing_mode
         self.timings = StageTimer()
-        logger.info(f"lungmask_tpu_torch running on {self.device}")
+        self._sharded_post = {}  # n_classes -> make_sharded_postprocess step
+        logger.info(f"lungmask_tpu_torch running on {self.device if mesh is None else mesh}")
 
         def make_runner(name, path):
             params, n_classes = get_model(name, path)
+            if mesh is not None:
+                return ShardedUNetRunner(params, n_classes, mesh=mesh, batch_size=batch_size,
+                                         compute_dtype=self._compute_dtype)
             return UNetRunner(
                 params,
                 n_classes,
@@ -167,7 +181,12 @@ class LMInferer:
     # ------------------------------------------------------------------
 
     def _preprocess(self, volume: np.ndarray):
-        """→ (normalized device slices (N, 256, 256), boxes (N, 4))."""
+        """→ (normalized device slices (N, 256, 256), or their slabs with
+        ``"sharded"``; boxes (N, 4))."""
+        if self.preprocessing == "sharded":
+            return preprocess.preprocess_sharded(
+                volume, self.mesh, resolution=(256, 256), compute_dtype=self._compute_dtype
+            )
         fn = {
             "host": preprocess.preprocess_host,
             "hybrid": preprocess.preprocess_hybrid,
@@ -249,21 +268,36 @@ class LMInferer:
         return model.run_numpy(normalized)
 
     def _synced(self, out):
-        """Wait for the device work queued so far: a stage that leaves its
-        result on the device must still end when its work does, or its
-        seconds land in the next stage."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for the device work queued so far (on every device of the
+        mesh): a stage that leaves its result on the device must still end
+        when its work does, or its seconds land in the next stage."""
+        devices = [self.device] if self.mesh is None else set(self.mesh.data_devices)
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return out
 
     def _device_postprocess(self, pred, n_classes: int) -> np.ndarray:
         """Device-mode cleanup on the inferer's device (a host map is
         uploaded first); the result comes down crumb-packed where it can
-        (≤ 4 classes, W % 4 == 0), a quarter of the dense bytes."""
-        pred = torch.as_tensor(pred).to(self.device)
-        if n_classes <= 4 and pred.shape[2] % 4 == 0:
-            return unpack_crumbs(postprocess_device_packed2(pred, n_classes).cpu().numpy())
-        return postprocess_device(pred, n_classes).cpu().numpy()
+        (≤ 4 classes, W % 4 == 0), a quarter of the dense bytes. With a mesh
+        the map stays in slabs over the data axis
+        (``parallel.make_sharded_postprocess``); a map that arrives whole is
+        split into slabs there."""
+        if self.mesh is None:
+            pred = torch.as_tensor(pred).to(self.device)
+            if n_classes <= 4 and pred.shape[2] % 4 == 0:
+                return unpack_crumbs(postprocess_device_packed2(pred, n_classes).cpu().numpy())
+            return postprocess_device(pred, n_classes).cpu().numpy()
+        step = self._sharded_post.get(n_classes)
+        if step is None:
+            step = self._sharded_post[n_classes] = make_sharded_postprocess(self.mesh, n_classes)
+        if not isinstance(pred, (list, tuple)):
+            pred = torch.as_tensor(pred)
+        crumbs = n_classes <= 4 and pred[0].shape[-1] % 4 == 0
+        out = np.concatenate([pack_bits(s, 2).cpu().numpy() if crumbs else s.cpu().numpy()
+                              for s in step(pred)])
+        return unpack_crumbs(out) if crumbs else out
 
     def _finish_volume(self, pred_np, boxes, slice_shape, n_classes, bar=None) -> np.ndarray:
         """Finishing stages: postprocess (per mode) + host paste-back."""
@@ -306,6 +340,10 @@ class LMInferer:
         with self.timings.stage("unet"):
             if self.fillmodelm is None:
                 return self._forward_model(self.model, pre["normalized"])
+            if self.mesh is not None:  # the two sharded runners one after the other
+                run = "run" if self._device_post else "run_numpy"
+                pair = tuple(getattr(m, run)(pre["normalized"]) for m in (self.model, self.fillmodelm))
+                return self._synced(pair)
             if self._device_post:
                 return self._synced(run_pair(self.model, self.fillmodelm, pre["normalized"]))
             return run_pair_numpy(self.model, self.fillmodelm, pre["normalized"])

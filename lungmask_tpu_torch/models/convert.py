@@ -8,8 +8,10 @@
   (fine-tuned weights and gradients back in the JAX layout).
 * :func:`load_npz` / :func:`save_npz` read and write the JAX package's flat
   ``.npz`` format unchanged.
-* :func:`convert_pth` takes a reference ``.pth`` state dict (production
-  layout) through the same BatchNorm fold (eps 1e-5) into the HWIO numpy tree.
+* :func:`convert_pth` takes a reference ``.pth`` state dict (any variant:
+  production, ``residual``, ``upconv``; :func:`detect_config`) through the
+  same BatchNorm fold (eps 1e-5) into the HWIO numpy tree, with the JAX
+  package's variant keys (``res``, ``bn_pre``, ``upconv``).
 
 Conversion rules (reference U-Net, lungmask/resunet.py): conv kernels are
 OIHW in torch and HWIO in the JAX tree; inference-mode BatchNorm folds into
@@ -34,7 +36,8 @@ Params = Dict[str, Any]
 
 def from_jax_params(params: Params, device="cpu") -> Params:
     """JAX-layout numpy tree → port tree of float32 tensors on ``device``:
-    4-D kernels HWIO → OIHW, everything else as is."""
+    4-D kernels HWIO → OIHW (the upconv's (2, 2, in, out) → (out, in, 2,
+    2)), everything else as is."""
     if isinstance(params, dict):
         return {k: from_jax_params(v, device) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
@@ -92,27 +95,90 @@ def _conv_block(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
     }
 
 
-def convert_state_dict(state_dict: Mapping[str, Any]) -> Params:
-    """Production-layout torch state dict → JAX-layout numpy tree. The
-    residual and upconv layouts raise: ROADMAP.md queue 1, item 8."""
+def _res_path(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    """The residual 1×1 conv + BN skip path (reference resunet.py:81-82,
+    107-114); dead in the production layout, used when residual=True."""
+    return {
+        "conv": _conv(sd, prefix + ".residual_input_conv"),
+        "bn": _folded_bn(sd, prefix + ".residual_batchnorm"),
+    }
+
+
+def _res_conv_block(sd: Mapping[str, Any], prefix: str, first: bool) -> Dict[str, Any]:
+    """Residual, batch_norm=True block. The reference's pre-activation
+    Sequential (resunet.py:86-106): the first block [Conv, ReLU, BN, Conv]
+    (indices 0/2/3), later blocks [ReLU, BN, Conv, ReLU, BN, Conv]
+    (indices 1/2/4/5)."""
+    if first:
+        block = {
+            "conv1": _conv(sd, prefix + ".block.0"),
+            "bn1": _folded_bn(sd, prefix + ".block.2"),
+            "conv2": _conv(sd, prefix + ".block.3"),
+        }
+    else:
+        block = {
+            "bn_pre": _folded_bn(sd, prefix + ".block.1"),
+            "conv1": _conv(sd, prefix + ".block.2"),
+            "bn1": _folded_bn(sd, prefix + ".block.4"),
+            "conv2": _conv(sd, prefix + ".block.5"),
+        }
+    block["res"] = _res_path(sd, prefix)
+    return block
+
+
+def detect_config(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """(depth, residual, up_mode) of a reference-layout state dict, as the
+    JAX package reads them: depth counts ``down_path.{i}``; residual iff
+    ``down_path.1.block.0.weight`` is missing (the residual layout's later
+    blocks open with a ReLU); up_mode ``'upconv'`` iff the transposed conv
+    sits at ``up_path.0.up.weight`` (``'upsample'`` wraps Upsample + Conv2d
+    as ``up.1``). A batch_norm=False layout raises."""
     depth = 1 + max(
         int(k.split(".")[1]) for k in state_dict if k.startswith("down_path.")
     )
-    if "down_path.1.block.0.weight" not in state_dict or "up_path.0.up.weight" in state_dict:
+    if depth < 2:
+        raise ValueError("state dict has fewer than 2 encoder levels")
+    residual = "down_path.1.block.0.weight" not in state_dict
+    up_mode = "upconv" if "up_path.0.up.weight" in state_dict else "upsample"
+    bn_probe = f"down_path.1.block.{4 if residual else 2}.running_mean"
+    if bn_probe not in state_dict:
         raise NotImplementedError(
-            "only the production (non-residual, upsample) U-Net layout is "
-            "ported; the variants are ROADMAP.md queue 1, item 8"
+            "batch_norm=False checkpoints are not supported (all reference "
+            "checkpoints use batch_norm=True)"
         )
-    if "down_path.1.block.2.running_mean" not in state_dict:
-        raise NotImplementedError("batch_norm=False checkpoints are not supported")
-    down = [_conv_block(state_dict, f"down_path.{i}") for i in range(depth)]
-    up = [
-        {
-            "proj": _conv(state_dict, f"up_path.{i}.up.1"),
-            "conv_block": _conv_block(state_dict, f"up_path.{i}.conv_block"),
-        }
-        for i in range(depth - 1)
-    ]
+    return {"depth": depth, "residual": residual, "up_mode": up_mode}
+
+
+def convert_state_dict(state_dict: Mapping[str, Any], depth: int | None = None) -> Params:
+    """Reference-layout torch state dict (any variant with batch_norm=True)
+    → JAX-layout numpy tree. The variant is encoded in the tree's keys, as
+    the JAX package encodes it: ``res`` (and ``bn_pre`` on every down block
+    but the first) for residual, ``upconv`` in place of ``proj`` for the
+    transposed-conv up path."""
+    cfg = detect_config(state_dict)
+    if depth is not None and depth != cfg["depth"]:
+        raise ValueError(f"depth mismatch: requested {depth}, found {cfg['depth']}")
+    depth = cfg["depth"]
+    if cfg["residual"]:
+        down = [_res_conv_block(state_dict, f"down_path.{i}", first=(i == 0))
+                for i in range(depth)]
+    else:
+        down = [_conv_block(state_dict, f"down_path.{i}") for i in range(depth)]
+    up = []
+    for i in range(depth - 1):
+        if cfg["up_mode"] == "upconv":
+            # ConvTranspose2d weight (in, out, kh, kw) → (kh, kw, in, out).
+            w = _to_numpy(state_dict[f"up_path.{i}.up.weight"]).astype(np.float32)
+            b = _to_numpy(state_dict[f"up_path.{i}.up.bias"]).astype(np.float32)
+            block = {"upconv": {"w": np.transpose(w, (2, 3, 0, 1)), "b": b}}
+        else:
+            block = {"proj": _conv(state_dict, f"up_path.{i}.up.1")}
+        # The up block's own conv block is never residual; the residual
+        # path wraps the whole up block (resunet.py:134,149-153).
+        block["conv_block"] = _conv_block(state_dict, f"up_path.{i}.conv_block")
+        if cfg["residual"]:
+            block["res"] = _res_path(state_dict, f"up_path.{i}")
+        up.append(block)
     return {"down": down, "up": up, "last": _conv(state_dict, "last")}
 
 

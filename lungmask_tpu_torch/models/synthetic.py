@@ -142,6 +142,84 @@ def laterality_params(
     return params
 
 
+def reference_state_dict(
+    n_classes: int,
+    *,
+    depth: int = DEPTH,
+    wf: int = WF,
+    residual: bool = False,
+    up_mode: str = "upsample",
+    seed: int = 0,
+):
+    """A random state dict in the reference U-Net's layout (lungmask
+    resunet.py, batch_norm=True), as a ``.pth`` of that configuration holds
+    it: float32 numpy arrays, keyed as ``models/convert.detect_config`` and
+    ``convert_state_dict`` read them, ``last.bias`` last. Every block carries
+    its ``residual_input_conv`` / ``residual_batchnorm`` (dead unless
+    ``residual``). Drawn from ``numpy.random.default_rng(seed)``: conv
+    weights and biases U(±1/√fan_in) as torch's default init, BatchNorm
+    weights U(0.5, 1.5), biases U(−0.2, 0.2), running means N(0, 0.2),
+    running variances U(0.5, 2); the head is widened (×64, zero bias) so
+    that the class varies from pixel to pixel."""
+    if up_mode not in ("upsample", "upconv"):
+        raise ValueError(f"unknown up_mode {up_mode!r}")
+    rng = np.random.default_rng(seed)
+    chans = encoder_channels(depth, wf)
+    sd = {}
+
+    def conv(name, cin, cout, k, transposed=False):
+        bound = 1.0 / np.sqrt(cin * k * k if not transposed else cout * k * k)
+        shape = (cin, cout, k, k) if transposed else (cout, cin, k, k)
+        sd[name + ".weight"] = rng.uniform(-bound, bound, shape).astype(np.float32)
+        sd[name + ".bias"] = rng.uniform(-bound, bound, (cout,)).astype(np.float32)
+
+    def bn(name, c):
+        sd[name + ".weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        sd[name + ".bias"] = rng.uniform(-0.2, 0.2, c).astype(np.float32)
+        sd[name + ".running_mean"] = rng.normal(0, 0.2, c).astype(np.float32)
+        sd[name + ".running_var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+        sd[name + ".num_batches_tracked"] = np.zeros((), np.int64)
+
+    def block(prefix, cin, cout, res_layout, first):
+        if not res_layout:  # [Conv, ReLU, BN, Conv, ReLU, BN]
+            conv(prefix + ".block.0", cin, cout, 3)
+            bn(prefix + ".block.2", cout)
+            conv(prefix + ".block.3", cout, cout, 3)
+            bn(prefix + ".block.5", cout)
+        elif first:  # [Conv, ReLU, BN, Conv]
+            conv(prefix + ".block.0", cin, cout, 3)
+            bn(prefix + ".block.2", cout)
+            conv(prefix + ".block.3", cout, cout, 3)
+        else:  # [ReLU, BN, Conv, ReLU, BN, Conv]
+            bn(prefix + ".block.1", cin)
+            conv(prefix + ".block.2", cin, cout, 3)
+            bn(prefix + ".block.4", cout)
+            conv(prefix + ".block.5", cout, cout, 3)
+
+    def res_path(prefix, cin, cout):
+        conv(prefix + ".residual_input_conv", cin, cout, 1)
+        bn(prefix + ".residual_batchnorm", cout)
+
+    prev = IN_CHANNELS
+    for i, c in enumerate(chans):
+        block(f"down_path.{i}", prev, c, residual, first=(i == 0))
+        res_path(f"down_path.{i}", prev, c)
+        prev = c
+    for j, i in enumerate(reversed(range(depth - 1))):
+        c = chans[i]
+        if up_mode == "upconv":
+            conv(f"up_path.{j}.up", prev, c, 2, transposed=True)
+        else:
+            conv(f"up_path.{j}.up.1", prev, c, 1)
+        block(f"up_path.{j}.conv_block", prev, c, False, first=False)
+        res_path(f"up_path.{j}", prev, c)
+        prev = c
+    conv("last", prev, n_classes, 1)
+    sd["last.weight"] *= 64.0
+    sd["last.bias"][:] = 0.0
+    return sd
+
+
 def lung_phantom(n_slices: int, size: int = 512) -> np.ndarray:
     """Lung-like int16 CT phantom (N, size, size), seeded (a copy of the
     benchmark phantom, ``bench._synthetic_volume``, which is ``size=512``).

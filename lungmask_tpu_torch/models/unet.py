@@ -23,9 +23,21 @@ into a per-channel affine (``models/convert.py``).
   versions.
 * Head: the 1×1 classifier as a float32 matmul over channels (``_head``).
 
+The reference's two other configurations, dispatched on the tree's keys as
+the JAX package does (``models/convert.convert_state_dict`` writes them):
+
+* ``residual`` (``"res"`` in a block): the down blocks are pre-activation —
+  [ReLU → affine (``bn_pre``, in the activations' dtype) on all but the
+  first] → conv → ReLU → affine → conv, plus the 1×1 conv + affine of the
+  block's input — and each up block adds the 1×1 conv + affine of its
+  concatenated input to its output (:class:`ResPath`);
+* ``upconv`` (``"upconv"`` in an up block): the kernel-2 stride-2
+  transposed conv in place of upsample + projection, one float32 matmul per
+  pixel and a depth-to-space interleave (JAX's ``_upconv2``), bias added in
+  float32. K2 still pools; K3 runs only where the tree has ``proj``.
+
 ``float32`` runs with cuDNN's TF32 turned off for the call
 (``torch.backends.cudnn.flags``), so f32 logits are full float32 on a GPU.
-The ``residual`` and ``upconv`` variants are ROADMAP.md queue 1, item 8.
 
 Two ways to hold the weights, one forward:
 
@@ -109,49 +121,102 @@ def _vec(t: torch.Tensor) -> torch.Tensor:
     return t.view(1, -1, 1, 1)
 
 
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A 3×3 (zero-padded) or 1×1 convolution in ``x``'s dtype, its output
+    in float32 plus the float32 bias."""
+    return F.conv2d(x, w.to(x.dtype), padding=w.shape[-1] // 2).float() + _vec(b)
+
+
+def _affine(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A folded BatchNorm in ``x``'s dtype (JAX's ``_affine``)."""
+    return x * _vec(s).to(x.dtype) + _vec(t).to(x.dtype)
+
+
+class ResPath(nn.Module):
+    """The residual variant's skip path: 1×1 conv + affine, float32 out."""
+
+    def __init__(self, p: Params, compute_dtype: torch.dtype, trainable: bool = False):
+        super().__init__()
+        _hold(self, "w", p["conv"]["w"], trainable, compute_dtype, ("conv", "w"))
+        _hold(self, "b", p["conv"]["b"], trainable, torch.float32, ("conv", "b"))
+        _hold(self, "s", p["bn"]["scale"], trainable, torch.float32, ("bn", "scale"))
+        _hold(self, "t", p["bn"]["bias"], trainable, torch.float32, ("bn", "bias"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _affine(_conv(x, self.w, self.b), self.s, self.t)
+
+
 class ConvBlock(nn.Module):
-    """conv3x3 → ReLU → affine, twice. Kernels OIHW, cast to the
+    """conv3x3 → ReLU → affine, twice; or, with ``"res"`` in the tree, the
+    residual block (module docstring). Kernels OIHW, cast to the
     activations' dtype; biases and affines float32."""
 
     def __init__(self, p: Params, compute_dtype: torch.dtype, trainable: bool = False):
         super().__init__()
         for i in (1, 2):
-            conv, bn = f"conv{i}", f"bn{i}"
-            _hold(self, f"w{i}", p[conv]["w"], trainable, compute_dtype, (conv, "w"))
-            _hold(self, f"b{i}", p[conv]["b"], trainable, torch.float32, (conv, "b"))
-            _hold(self, f"s{i}", p[bn]["scale"], trainable, torch.float32, (bn, "scale"))
-            _hold(self, f"t{i}", p[bn]["bias"], trainable, torch.float32, (bn, "bias"))
+            _hold(self, f"w{i}", p[f"conv{i}"]["w"], trainable, compute_dtype, (f"conv{i}", "w"))
+            _hold(self, f"b{i}", p[f"conv{i}"]["b"], trainable, torch.float32, (f"conv{i}", "b"))
+        # The residual block has no affine after its second conv.
+        for bn in ("bn_pre", "bn1", "bn2"):
+            if bn in p:
+                _hold(self, f"s_{bn}", p[bn]["scale"], trainable, torch.float32, (bn, "scale"))
+                _hold(self, f"t_{bn}", p[bn]["bias"], trainable, torch.float32, (bn, "bias"))
+        self.res = ResPath(p["res"], compute_dtype, trainable) if "res" in p else None
 
     @staticmethod
     def _stage(x, w, b, s, t):
-        y = F.conv2d(x, w.to(x.dtype), padding=1).float() + _vec(b)
-        return (torch.relu(y) * _vec(s) + _vec(t)).to(x.dtype)
+        return (torch.relu(_conv(x, w, b)) * _vec(s) + _vec(t)).to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._stage(x, self.w1, self.b1, self.s1, self.t1)
-        return self._stage(x, self.w2, self.b2, self.s2, self.t2)
+        if self.res is None:
+            x = self._stage(x, self.w1, self.b1, self.s_bn1, self.t_bn1)
+            return self._stage(x, self.w2, self.b2, self.s_bn2, self.t_bn2)
+        inp = x
+        if hasattr(self, "s_bn_pre"):
+            x = _affine(torch.relu(x), self.s_bn_pre, self.t_bn_pre)
+        x = self._stage(x, self.w1, self.b1, self.s_bn1, self.t_bn1)
+        return (_conv(x, self.w2, self.b2) + self.res(inp)).to(inp.dtype)
 
 
 class UpBlock(nn.Module):
-    """Bilinear ×2 → 1×1 projection → centre-cropped skip concat → conv block."""
+    """Bilinear ×2 → 1×1 projection (or, with ``"upconv"``, the transposed
+    conv) → centre-cropped skip concat → conv block [+ the residual path of
+    the concat, with ``"res"``]."""
 
     def __init__(self, p: Params, compute_dtype: torch.dtype, trainable: bool = False):
         super().__init__()
-        if "upconv" in p or "res" in p:
-            raise NotImplementedError(
-                "the upconv and residual U-Net variants are not ported yet "
-                "(ROADMAP.md queue 1, item 8)"
-            )
-        _hold(self, "wp", p["proj"]["w"], trainable, compute_dtype, ("proj", "w"))
-        _hold(self, "bp", p["proj"]["b"], trainable, torch.float32, ("proj", "b"))
+        self.upconv = "upconv" in p
+        up = "upconv" if self.upconv else "proj"
+        _hold(self, "wp", p[up]["w"], trainable, compute_dtype, (up, "w"))
+        _hold(self, "bp", p[up]["b"], trainable, torch.float32, (up, "b"))
         self.conv_block = ConvBlock(p["conv_block"], compute_dtype, trainable)
+        self.res = ResPath(p["res"], compute_dtype, trainable) if "res" in p else None
+
+    def _upconv2(self, x: torch.Tensor) -> torch.Tensor:
+        """Kernel-2 stride-2 transposed conv (JAX ``unet._upconv2``): the
+        output blocks do not overlap, so ``out[2i+dy, 2j+dx, o] = Σ_c
+        x[i,j,c]·W[o,c,dy,dx] + b[o]`` is one matmul per pixel into 4·cout
+        phase channels, multiplied in float32 (exact for bf16 values, as
+        JAX accumulates), then interleaved."""
+        n, cin, h, w = x.shape
+        cout = self.wp.shape[0]
+        k = self.wp.to(x.dtype).permute(1, 2, 3, 0).reshape(cin, 4 * cout).float()
+        y = torch.matmul(x.permute(0, 2, 3, 1).float(), k)
+        y = y.view(n, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, cout)
+        return (y + self.bp).to(x.dtype).permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        up = stencil.bilinear_up2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        up = (F.conv2d(up, self.wp.to(up.dtype)).float() + _vec(self.bp)).to(up.dtype)
+        if self.upconv:
+            up = self._upconv2(x)
+        else:
+            up = stencil.bilinear_up2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            up = _conv(up, self.wp, self.bp).to(up.dtype)
         skip = _center_crop(skip, up.shape[2], up.shape[3])
         x = torch.cat([up, skip], dim=1)
-        return self.conv_block(x)
+        out = self.conv_block(x)
+        if self.res is None:
+            return out
+        return (out + self.res(x)).to(out.dtype)
 
 
 class UNet(nn.Module):
@@ -162,11 +227,6 @@ class UNet(nn.Module):
     def __init__(self, params: Params, compute_dtype: torch.dtype = torch.float32,
                  trainable: bool = False):
         super().__init__()
-        if any("res" in blk for blk in params["down"]):
-            raise NotImplementedError(
-                "the residual U-Net variant is not ported yet "
-                "(ROADMAP.md queue 1, item 8)"
-            )
         self.compute_dtype = compute_dtype
         self.down = nn.ModuleList(ConvBlock(p, compute_dtype, trainable) for p in params["down"])
         self.up = nn.ModuleList(UpBlock(p, compute_dtype, trainable) for p in params["up"])

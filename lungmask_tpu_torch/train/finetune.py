@@ -1,4 +1,4 @@
-"""Fine-tune a lungmask U-Net on your own (volume, mask) pairs, on one GPU.
+"""Fine-tune a lungmask U-Net on your own (volume, mask) pairs, on the GPUs.
 
     python -m lungmask_tpu_torch.train.finetune DATA_DIR OUT.npz [--epochs N]
         [--model R231|PATH] [--resolution 256] [--cpu]
@@ -8,8 +8,10 @@ Pairs of ``.nii.gz`` volumes and label masks in a directory —
 macro-Dice evaluation; the best-scoring weights are written to ``OUT.npz``
 in the format both packages' ``LMInferer(modelpath=)`` read, and the full
 train state is checkpointed beside it each epoch for exact resume. The
-counterpart of the JAX package's ``examples/finetune.py`` on one device; it
-runs on CUDA unless ``--cpu`` is given, and fails without CUDA otherwise.
+counterpart of the JAX package's ``examples/finetune.py``: each batch splits
+over a mesh of every visible GPU (``parallel.make_mesh()``), 8 slices per
+GPU; ``--cpu`` runs on a one-device CPU mesh instead, and without CUDA and
+without ``--cpu`` it fails.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ import numpy as np
 
 from lungmask_tpu_torch.io import load_input_image
 from lungmask_tpu_torch.models import convert, registry
+from lungmask_tpu_torch.parallel import make_mesh
 from lungmask_tpu_torch.train import Augmenter, fit
 from lungmask_tpu_torch.train.data import SliceDataset, slices_from_pair
-from lungmask_tpu_torch.utils.device import resolve_device
 
 
 def main(argv=None):
@@ -39,7 +41,8 @@ def main(argv=None):
                     help="slice resolution (the shipped models use 256)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = ap.parse_args(argv)
-    device = resolve_device(None, force_cpu=args.cpu)
+    mesh = make_mesh(devices=["cpu"] if args.cpu else None)  # all local devices
+    ndata, device = mesh.shape["data"], mesh.data_devices[0]
 
     pairs = []
     for vol_path in sorted(glob.glob(os.path.join(args.data_dir, "*[!k].nii.gz"))):
@@ -65,9 +68,11 @@ def main(argv=None):
         np.asarray(eval_pair[0]), np.asarray(eval_pair[1]), resolution=res, device=device
     )
     print(f"{len(train_pairs)} train volumes -> {len(dataset)} slices; "
-          f"{eval_images.shape[0]} held-out eval slices; on {device}")
+          f"{eval_images.shape[0]} held-out eval slices; on {device} "
+          f"({ndata}-way data mesh)")
 
-    batch = max(1, min(len(dataset), 8))
+    # the batch splits evenly over the mesh's data axis
+    batch = max(ndata, min(len(dataset), 8 * ndata) // ndata * ndata)
     steps_per_epoch = max(1, len(dataset) // batch)
     result = fit(
         convert.from_jax_params(params, device),
@@ -80,7 +85,7 @@ def main(argv=None):
         eval_every=steps_per_epoch,
         checkpoint_path=args.out_path.replace(".npz", "") + "-trainstate.npz",
         checkpoint_every=steps_per_epoch,
-        device=device,
+        mesh=mesh,
     )
 
     convert.save_npz(

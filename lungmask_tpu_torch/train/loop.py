@@ -86,21 +86,29 @@ def fit(
     device=None,
 ) -> FitResult:
     """Fine-tune ``params`` (a port tree, ``models/convert.from_jax_params``)
-    on ``dataset``, on ``device`` (CUDA unless ``"cpu"``).
+    on ``dataset``, on ``device`` (CUDA unless ``"cpu"``), or with ``mesh``
+    on the mesh's devices.
 
     * ``eval_pairs`` — (images (N,H,W), labels (N,H,W)) held-out slices;
       evaluated every ``eval_every`` steps (and at the end) with macro Dice;
       the best-scoring params are kept in ``FitResult.best_params``.
     * ``checkpoint_path`` + ``checkpoint_every`` — periodic exact-resume
       snapshots via ``train.checkpoint`` (also written at the end).
-    * ``mesh`` — the sharded loop is ROADMAP.md queue 1, item 10.
+    * ``mesh`` — a ``parallel.Mesh``: each batch splits over its data axis
+      (``batch_size`` must divide over it), the weights and the optimizer's
+      state live on its first data device, evaluation runs there
+      (``make_train_step(mesh=)``).
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded fine-tuning is not ported to lungmask_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 10)"
-        )
-    device = resolve_device(device)
+        ndata = mesh.shape["data"]
+        if batch_size % ndata:
+            raise ValueError(
+                f"batch_size={batch_size} does not split evenly over the mesh's "
+                f"{ndata}-way data axis"
+            )
+        device = mesh.data_devices[0]
+    else:
+        device = resolve_device(device)
     n_batches = (len(dataset) // batch_size) * epochs
     if n_batches == 0:
         raise ValueError(
@@ -110,7 +118,7 @@ def fit(
     if optimizer is None:
         optimizer = default_optimizer(n_batches)
     step_fn = make_train_step(
-        optimizer, compute_dtype=compute_dtype, dice_weight=dice_weight, remat=remat,
+        optimizer, mesh=mesh, compute_dtype=compute_dtype, dice_weight=dice_weight, remat=remat,
     )
     state = init_train_state(params, optimizer, device)
     rng = np.random.default_rng(seed)

@@ -12,15 +12,23 @@
 * ``remat`` recomputes the forward in the backward
   (``torch.utils.checkpoint``, non-reentrant), trading compute for
   activation memory.
-* ``mesh=`` (the sharded step) is ROADMAP.md queue 1, item 10.
+* ``mesh=`` (the sharded step, :func:`_sharded_step`): the batch splits
+  over the mesh's data axis, one replica of the weights per part on its
+  device; the parts' loss sums meet on the first device, the gradient of
+  each replica is summed into the state's model in mesh order, and one
+  optimizer update runs there. In a group of several processes
+  (``parallel.multihost``), the loss sums and the gradients are also
+  summed over the group.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -52,14 +60,22 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     return -picked.mean()
 
 
-def dice_loss(logits: torch.Tensor, labels: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Mean soft-Dice loss over classes (one-hot vs softmax probabilities)."""
+def _dice_sums(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per class, the sums over the batch of probability × one-hot and of
+    probability + one-hot."""
     probs = torch.softmax(logits, dim=-1)
     onehot = F.one_hot(labels.long(), logits.shape[-1]).to(probs.dtype)
-    inter = torch.sum(probs * onehot, dim=(0, 1, 2))
-    denom = torch.sum(probs + onehot, dim=(0, 1, 2))
-    dice = (2 * inter + eps) / (denom + eps)
-    return 1.0 - torch.mean(dice)
+    return torch.sum(probs * onehot, dim=(0, 1, 2)), torch.sum(probs + onehot, dim=(0, 1, 2))
+
+
+def _dice_from_sums(inter: torch.Tensor, denom: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return 1.0 - torch.mean((2 * inter + eps) / (denom + eps))
+
+
+def dice_loss(logits: torch.Tensor, labels: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Mean soft-Dice loss over classes (one-hot vs softmax probabilities),
+    its sums taken over the whole batch."""
+    return _dice_from_sums(*_dice_sums(logits, labels), eps)
 
 
 def init_train_state(params: Params, optimizer: AdamW, device=None) -> TrainState:
@@ -80,12 +96,11 @@ def make_train_step(
 ):
     """``step(state, images (N,H,W,1), labels (N,H,W)) → (state, loss)``;
     images and labels may be numpy arrays or tensors (moved to the model's
-    device); the loss is a 0-d float32 tensor on it."""
+    device); the loss is a 0-d float32 tensor on it. With ``mesh``, N
+    divides over its data axis and the state's model lies on its first data
+    device (:func:`_sharded_step`)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded train step is not ported to lungmask_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 10)"
-        )
+        return _sharded_step(optimizer, mesh, compute_dtype, dice_weight, remat)
 
     def loss_fn(model: unet.UNet, images, labels):
         if remat:
@@ -110,5 +125,90 @@ def make_train_step(
             updates, opt_state = optimizer.update(grads, state.opt_state, params)
             apply_updates(params, updates)
         return TrainState(model, opt_state, state.step + 1), loss.detach()
+
+    return step
+
+
+def _replicas(master: unet.UNet, devices) -> List[unet.UNet]:
+    """``master`` and one copy of it on each further device (a device named
+    again gets a copy of its own, so every part's gradient is its own)."""
+    return [master] + [copy.deepcopy(master).to(dev) for dev in devices[1:]]
+
+
+def _sharded_step(optimizer: AdamW, mesh, compute_dtype: torch.dtype, dice_weight: float,
+                  remat: bool):
+    """The train step over the data axis of ``mesh`` (module docstring).
+
+    The loss is the unsharded step's: its cross-entropy the summed NLL over
+    the pixel count of the whole batch, its Dice from the per-class sums
+    over the whole batch — never an average of the parts' losses, which
+    weighs each part's Dice alike and is another function. Autograd carries
+    the gradient back through the copies of the parts' sums to the first
+    device. In a process group (``torch.distributed`` initialised), the
+    sums meet by a differentiable all-reduce — every process passes a batch
+    of the same size — whose backward sums the loss's gradient over the
+    group once more, so each replica's gradient is divided by the group's
+    size once before the gradients are summed over the group."""
+    from lungmask_tpu_torch.parallel.mesh import shard_batch
+
+    devices = mesh.data_devices
+    held = {"master": None, "replicas": []}
+
+    def logits_of(model, x):
+        if remat:
+            return checkpoint(model.logits, x, compute_dtype, use_reentrant=False)
+        return model.logits(x, compute_dtype)
+
+    def step(state: TrainState, images, labels) -> Tuple[TrainState, torch.Tensor]:
+        master = state.model
+        params = dict(master.named_parameters())
+        first = next(iter(params.values())).device
+        if first != devices[0]:
+            raise ValueError(f"the state's model lies on {first}, the mesh starts at {devices[0]}")
+        if held["master"] is not master:
+            held["master"], held["replicas"] = master, _replicas(master, devices)
+        models = held["replicas"]
+        images, labels = torch.as_tensor(images), torch.as_tensor(labels)
+        xs, ys = shard_batch(mesh, images), shard_batch(mesh, labels)
+        grouped = dist.is_available() and dist.is_initialized()
+        with torch.inference_mode(False), torch.enable_grad(), unet.conv_flags(compute_dtype):
+            with torch.no_grad():
+                for m in models[1:]:
+                    for p, q in zip(m.parameters(), master.parameters()):
+                        p.copy_(q)
+            for m in models:
+                m.zero_grad(set_to_none=True)
+            sums = None
+            for m, x, y in zip(models, xs, ys):
+                logits = logits_of(m, x)
+                nll = -torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                                    y.unsqueeze(-1).long()).sum()
+                part = torch.cat([nll.view(1), *_dice_sums(logits, y)]).to(first)
+                sums = part if sums is None else sums + part
+            count = labels.numel()
+            if grouped:
+                from torch.distributed.nn.functional import all_reduce
+
+                sums = all_reduce(sums)
+                count *= dist.get_world_size()
+            c = (sums.shape[0] - 1) // 2
+            ce = sums[0] / count
+            loss = (1.0 - dice_weight) * ce + dice_weight * _dice_from_sums(sums[1 : 1 + c],
+                                                                            sums[1 + c :])
+            loss.backward()
+        with torch.no_grad():
+            grads = {k: p.grad.clone() for k, p in params.items()}
+            for m in models[1:]:
+                for k, p in m.named_parameters():
+                    grads[k] += p.grad.to(first)
+            if grouped:
+                keys = list(grads)
+                flat = torch.cat([grads[k].reshape(-1) for k in keys]) / dist.get_world_size()
+                dist.all_reduce(flat)
+                for k, g in zip(keys, torch.split(flat, [grads[k].numel() for k in keys])):
+                    grads[k] = g.view_as(grads[k])
+            updates, opt_state = optimizer.update(grads, state.opt_state, params)
+            apply_updates(params, updates)
+        return TrainState(master, opt_state, state.step + 1), loss.detach()
 
     return step

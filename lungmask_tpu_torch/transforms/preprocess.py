@@ -24,19 +24,25 @@ In hybrid mode, slices smaller than 128² take the strict host pipeline
 (``transforms/host_pipeline.py``) instead, as the JAX package's do; its
 stack is cast and uploaded the same way.
 
+Sharded mode (:func:`preprocess_sharded`, ``preprocessing="sharded"`` with
+a mesh): device mode with the raw volume split over the mesh's data axis
+into slabs, each slab's boxes (K1 included) and normalized slices computed
+on its own device; the stack stays in slabs for the sharded U-Net.
+
 Every entry point computes on CUDA unless its ``device`` is ``"cpu"``
 (``utils/device.resolve_device``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from lungmask_tpu_torch.ops import cc, morphology, resample
 from lungmask_tpu_torch.ops.kernels.bodymask import bodymask_labels
+from lungmask_tpu_torch.parallel.mesh import split_rows
 from lungmask_tpu_torch.utils.device import resolve_device
 
 HU_LO = -1024
@@ -202,6 +208,57 @@ def preprocess(
     plan = resample.crop_resize_plan(boxes, resolution, order=1, device=raw.device)
     normalized = _crop_normalize(raw, plan, not raw.is_floating_point())
     return normalized.to(compute_dtype), boxes
+
+
+def _upload_slabs(volume: np.ndarray, mesh) -> List[torch.Tensor]:
+    """The raw volume split over the mesh's data axis (``split_rows``),
+    each slab uploaded to its device as :func:`_upload` does."""
+    devs = mesh.data_devices
+    return [_upload(volume[a:b], dev) for (a, b), dev in zip(split_rows(len(volume), len(devs)), devs)]
+
+
+def _slab_boxes(raws: List[torch.Tensor]) -> np.ndarray:
+    """(N, 4) int32 boxes of the slabs, each computed on its own device."""
+    parts = [_boxes_for_volume(r) if r.shape[0] else None for r in raws]
+    return np.concatenate([np.zeros((0, 4), np.int32) if p is None else p.cpu().numpy()
+                           for p in parts])
+
+
+def make_sharded_boxes_fn(mesh):
+    """``boxes(volume (N, H, W) HU) → (N, 4) int32 numpy``: the slices split
+    over the mesh's data axis, each slab's crop boxes (K1 included)
+    computed on its own device, gathered on the host."""
+    return lambda volume: _slab_boxes(_upload_slabs(np.asarray(volume), mesh))
+
+
+def preprocess_sharded(
+    volume: np.ndarray,
+    mesh,
+    resolution: Tuple[int, int] = (256, 256),
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[List[torch.Tensor], np.ndarray]:
+    """:func:`preprocess` over a mesh: the raw volume split over the data
+    axis (``parallel.mesh.split_rows``), each slab clipped, boxed (K1) and
+    cropped + resized + normalized on its own device.
+
+    Returns:
+        normalized: one (n_d, res, res) slab per data device, in
+            ``compute_dtype``, on that device; stacked, equal to
+            :func:`preprocess`'s stack.
+        boxes: (N, 4) int32 numpy crop boxes, equal to :func:`preprocess`'s.
+    """
+    raws = _upload_slabs(np.asarray(volume), mesh)
+    boxes = _slab_boxes(raws)
+    normalized, row = [], 0
+    for raw in raws:
+        n = raw.shape[0]
+        plan = resample.crop_resize_plan(boxes[row : row + n], resolution, order=1,
+                                         device=raw.device)
+        slab = _crop_normalize(raw, plan, not raw.is_floating_point()) if n else (
+            torch.zeros((0,) + tuple(resolution), device=raw.device))
+        normalized.append(slab.to(compute_dtype))
+        row += n
+    return normalized, boxes
 
 
 def _crop_resize_normalize_scipy(

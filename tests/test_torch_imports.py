@@ -43,6 +43,8 @@ def test_port_imports_without_jax_or_tqdm():
         "import lungmask_tpu_torch.train\n"
         "from lungmask_tpu_torch.train import (augment, checkpoint, data, finetune, loop, optim,\n"
         "                                      store, trainer)\n"
+        "import lungmask_tpu_torch.parallel\n"
+        "from lungmask_tpu_torch.parallel import mesh, multihost, sharded\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm', 'PIL'))\n"
         "assert not bad, bad\n"
@@ -86,6 +88,35 @@ def test_dicom_series_without_jax_tqdm_or_pillow(tmp_path):
         "back = loader.load_input_image(out.rsplit('/', 1)[0])\n"
         "assert np.array_equal(back.array, vol) and back.spacing == (0.7, 0.7, 2.5)\n"
         "assert np.array_equal(codecs.j2k_decode(codecs.htj2k_encode(vol[0])), vol[0])\n"
+        "print('ok')\n"
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_mesh_and_variant_unets_without_jax():
+    """The mesh, the sharded runner and cleanup, the multi-process helpers
+    and the residual and upconv U-Nets import and construct, with the
+    machine's missing packages blocked."""
+    res = _run(
+        "import numpy as np, torch\n"
+        "from lungmask_tpu_torch.models import convert, synthetic, unet\n"
+        "from lungmask_tpu_torch.parallel import ShardedUNetRunner, make_mesh\n"
+        "from lungmask_tpu_torch.parallel import make_sharded_postprocess, multihost\n"
+        "mesh = make_mesh(devices=['cpu'] * 2)\n"
+        "for residual, up in ((True, 'upsample'), (False, 'upconv'), (True, 'upconv')):\n"
+        "    sd = synthetic.reference_state_dict(3, depth=3, wf=2, residual=residual, up_mode=up)\n"
+        "    params = convert.convert_state_dict(sd)\n"
+        "    model = unet.UNet(convert.from_jax_params(params), trainable=True)\n"
+        "    runner = ShardedUNetRunner(params, 3, mesh=mesh, batch_size=2)\n"
+        "    out = runner.run(np.zeros((3, 32, 32), np.float32))\n"
+        "    assert [tuple(o.shape) for o in out] == [(2, 32, 32), (1, 32, 32)]\n"
+        "make_sharded_postprocess(mesh, 3)\n"
+        "assert multihost.shard_cohort([1, 2, 3]) == [1, 2, 3]\n"
+        "assert multihost.initialize_multihost() is False\n"
+        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm', 'PIL'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     assert res.returncode == 0, res.stderr

@@ -119,16 +119,18 @@ def test_no_silent_cpu_fallback(weights):
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize(
-    "kwargs, item",
-    [
-        ({"preprocessing": "sharded"}, 10),
-        ({"mesh": object()}, 10),
-    ],
-)
-def test_unported_options_raise(weights, kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        LMInferer(modelpath=weights, device="cpu", **kwargs)
+@pytest.mark.parametrize("case", ["sharded without a mesh", "the space axis"])
+def test_unported_options_raise(weights, case):
+    """The mesh (item 10) is ported: ``preprocessing="sharded"`` needs one,
+    and of the mesh only its space axis (item 10b) still raises."""
+    from lungmask_tpu_torch.parallel import make_mesh
+
+    if case == "sharded without a mesh":
+        with pytest.raises(ValueError, match="requires mesh"):
+            LMInferer(modelpath=weights, device="cpu", preprocessing="sharded")
+    else:
+        with pytest.raises(NotImplementedError, match="item 10b"):
+            LMInferer(modelpath=weights, mesh=make_mesh(devices=["cpu"] * 2, space=2))
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int8, np.bool_, np.int16, np.float32])

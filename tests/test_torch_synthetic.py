@@ -108,10 +108,10 @@ def test_pth_conversion_equals_jax(tmp_path):
     want, n_want = jconvert.convert_pth(path)
     assert n == n_want == 3
     _assert_trees_equal(got, want)
-    sd = _state_dict()
-    sd["up_path.0.up.weight"] = sd.pop("up_path.0.up.1.weight")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        convert.convert_state_dict(sd)
+    sd = {k: v for k, v in _state_dict().items() if ".block.2." not in k}
+    for conv_ in (convert, jconvert):  # a batch_norm=False layout
+        with pytest.raises(NotImplementedError, match="batch_norm=False"):
+            conv_.convert_state_dict(sd)
 
 
 def test_registry_reads_the_jax_cache_and_never_downloads(tmp_path, monkeypatch):

@@ -334,10 +334,12 @@ def test_fit_improves_loss_and_checkpoints(tmp_path):
     assert stencil.avg_pool2_bwd.launches == launches  # the CPU takes the plain adjoints
     restored, _ = ckpt.load_train_state(path, init_train_state(params, default_optimizer(24)))
     assert restored.step == res.state.step == 24
-    with pytest.raises(NotImplementedError, match="item 10"):
-        fit(params, ds, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_train_step(default_optimizer(4), mesh=object())
+    from lungmask_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="split evenly"):  # the sharded loop's batch
+        fit(params, ds, batch_size=3, mesh=make_mesh(devices=["cpu"] * 2))
+    with pytest.raises(NotImplementedError, match="item 10b"):  # the mesh's space axis
+        make_train_step(default_optimizer(4), mesh=make_mesh(devices=["cpu"] * 2, space=2))
 
 
 def test_finetune_cli_weights_load_in_jax(tmp_path):

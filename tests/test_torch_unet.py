@@ -73,6 +73,15 @@ def test_from_jax_params_layout(params):
 
 
 def test_variants_wait(params):
-    bad = dict(params, up=[dict(params["up"][0], upconv={})] + params["up"][1:])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        unet.UNet(convert.from_jax_params(bad))
+    """The variants dispatch on the tree's keys (``tests/test_torch_variants.py``
+    holds them against JAX): an up block with ``upconv`` in place of
+    ``proj`` takes the transposed conv, whose (2, 2, in, out) kernel the
+    port holds as (out, in, 2, 2)."""
+    cin, cout = params["up"][0]["proj"]["w"].shape[2:]
+    upconv = {"w": np.ones((2, 2, cin, cout), np.float32), "b": np.zeros(cout, np.float32)}
+    first = {k: v for k, v in params["up"][0].items() if k != "proj"}
+    tree = dict(params, up=[dict(first, upconv=upconv)] + params["up"][1:])
+    model = unet.UNet(convert.from_jax_params(tree))
+    assert model.up[0].upconv and not model.up[1].upconv
+    assert tuple(model.up[0].wp.shape) == (cout, cin, 2, 2)
+    assert sorted(model.tree()["up"][0]) == ["conv_block", "upconv"]

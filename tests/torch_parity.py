@@ -3,8 +3,9 @@
 Not a test module. Importing it pins torch to one thread: the tier-1 run
 starts six pytest workers, and each torch process would otherwise start one
 thread per core. Inputs are made from a seed with numpy and handed to both
-packages as numpy arrays. Nothing here imports JAX, so the CUDA-marked tests
-can run on a machine that has none (``pytest --noconftest -m cuda``).
+packages as numpy arrays. Nothing here needs JAX (the JAX package is
+imported only where it imports), so the CUDA-marked tests can run on a
+machine that has none (``pytest --noconftest -m cuda``).
 """
 
 from __future__ import annotations
@@ -16,12 +17,54 @@ import torch
 torch.set_num_threads(1)
 
 
+def _build_jax_native_once() -> None:
+    """Make sure this test worker holds the JAX package's native libraries
+    (its host core and its DICOM codecs). The JAX package builds each on
+    first use with no lock, writing the library in place
+    (``lungmask_tpu/ops/native.py::build_or_load_library``), and some of its
+    test modules ask for them while pytest collects. Workers that collect
+    together then compile over each other, and a worker whose build failed
+    remembers that it has no library for the rest of its life: its
+    ``skipif``s skip, and the port's comparisons with the JAX codecs fail.
+    Here, after those collection-time builds, under a file lock that
+    serialises the workers, a worker without a library forgets the failure
+    and builds or loads it again. Where the JAX package does not import (the
+    GPU machine), nothing is done."""
+    try:
+        from lungmask_tpu.io import codecs as jcodecs
+        from lungmask_tpu.ops import native as jnative
+    except ImportError:
+        return
+    from lungmask_tpu_torch.ops.native import build_lock
+
+    with build_lock(jnative._OUT):
+        for mod in (jnative, jcodecs):
+            if mod.get_lib() is None:
+                mod._TRIED = False
+                mod.get_lib()
+
+
+_build_jax_native_once()
+
+
 def cuda_device() -> torch.device:
     """The CUDA device for a ``cuda``-marked test; skips the test (at run
     time, never at import) where there is none."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
     return torch.device("cuda", 0)
+
+
+class GradRecorder:
+    """An optimizer for ``make_train_step`` that keeps the step's gradients
+    (``.grads``) and moves no weight."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.clone() for k, g in grads.items()}
+        return {k: torch.zeros_like(g) for k, g in grads.items()}, state
 
 
 def bodymask_slices(seed: int, b: int = 8) -> np.ndarray:
