@@ -66,7 +66,20 @@ seed, with crafted weights:
   ``fit(mesh=)`` next to the unsharded fit, one f32 step's loss and
   gradients against the plain loss at the shards' shapes (1e-5) and the
   unsharded step's, and one step through a
-  one-process NCCL group (``parallel.multihost``).
+  one-process NCCL group (``parallel.multihost``);
+* the mesh's space axis — height bands with halo rows: on one 32-slice
+  chunk (crafted and random wf=6 weights) two bands' f32 logits within
+  1e-4 of the largest |logit| of the whole height's with the same argmax,
+  their bf16 argmax agreement printed (≥ 0.9999), K2/K3 launches per band;
+  K2/K2ᵀ at the bands' shapes and K3/K3ᵀ at the padded bands' of every
+  level, bit-equal to their plain versions; ``LMInferer(mesh=)`` over a 1x2
+  (``[cuda:0] * 2, space=2``) and a 2x2 mesh on one card, single and fused,
+  exact and device, its masks' differing voxels against the unsharded
+  device-mode masks (0 with an f32 model), K1 1 per data slab and K2/K3 24
+  per band per ``apply``; ``make_sharded_postprocess`` of the phantom's map
+  on the 2x2 blocks, bit-equal; ``fit(mesh=1x2)`` beside the unsharded fit
+  (losses within 1e-3), one f32 step (loss 1e-5, leaves 1e-3 of their
+  largest) and the banded step's time.
 
 Each path's calls run with every kernel's launch count set to 0 just before
 them and read just after. Kernel times are CUDA-event medians over runs of
@@ -80,13 +93,14 @@ The kernels line gives K2 and K3 per 32-slice inference chunk and K2ᵀ and
 K3ᵀ per train step of batch 8, each summed over the U-Net's four shapes.
 
 Phases: device, build, kernel, unet, stencil, fused, inferer, cli, dicom,
-postdev, cohort, serve, devprep, train, variants, mesh; each prints its
+postdev, cohort, serve, devprep, train, variants, mesh, space; each prints its
 results on its own lines, and fails if it left torch's current CUDA device
 changed (the launchers must restore the caller's device). The second-to-last line is a JSON
 object describing the kernels; the last line is ``{"ok": true, "device":
 {...}}`` and is printed only when every phase passed. Exits non-zero,
-printing no result, when no CUDA device is available or any phase fails.
-Imports nothing of JAX.
+printing no result, when no CUDA device is available (2), when the port is
+not beside the script (1: the script alone, outside a checkout) or when any
+phase fails (1). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -150,6 +164,12 @@ MESH_BATCH = 64  # the two-way mesh's chunk: 32 slices per shard, as unsharded
 MESH_TRAIN_SLICES = 32  # fit(mesh=): 4 steps of batch 8 (4 per shard)
 GRAD_RTOL = 1e-5  # one f32 train step, sharded vs unsharded (the CPU tests' bound)
 GRAD_GROSS = 1e-2  # the same at other batch shapes (see _mesh_train)
+# The space phase (1x2 and 2x2 meshes on one card, bands of 128 rows).
+SPACE_LOGIT_RTOL = 1e-4  # banded f32 logits, of the largest |logit|
+SPACE_BF16_AGREEMENT = 0.9999  # banded bf16 argmax against unbanded bf16
+SPACE_VOXEL_SHARE = 1e-5  # bf16 masks: differing voxels, of the volume's
+SPACE_LOSS_RTOL = 1e-3  # fit(mesh=1x2) bf16 losses against the unsharded fit's
+SPACE_GRAD_RTOL = 1e-3  # one f32 step: each leaf, of its largest gradient
 REPS = 20  # back-to-back launches per CUDA-event pair
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -1720,6 +1740,313 @@ class Smoke:
                    "the step through the group differs")
 
 
+    def space(self):
+        """The mesh's space axis on the card: height bands with halo rows
+        through the production U-Net on one 32-slice chunk, the stencils at
+        the bands' shapes, ``LMInferer(mesh=)`` over a 1x2 and a 2x2 mesh
+        on one card, the banded cleanup and ``fit(mesh=1x2)``."""
+        import numpy as np
+
+        torch = self.torch
+        from lungmask_tpu_torch.models import convert, unet
+        from lungmask_tpu_torch.parallel import make_mesh
+        from lungmask_tpu_torch.parallel.halo import Bands
+        from lungmask_tpu_torch.parallel.mesh import split_bands
+        from lungmask_tpu_torch.transforms import preprocess
+
+        dev = torch.device("cuda", 0)
+        x, _ = preprocess.preprocess(self.state["phantom"][:CHUNK], device=dev)
+        x = x.unsqueeze(-1)  # (32, 256, 256, 1)
+        bounds = split_bands(x.shape[1], 2)
+        with torch.inference_mode():
+            for name, params in (("crafted", self.state["params"]), ("random", _random_params(0))):
+                logits = {}
+                for dtype in (torch.float32, torch.bfloat16):
+                    model = unet.UNet(convert.from_jax_params(params, dev), dtype).eval()
+                    _reset_launches()
+                    banded = model.logits(Bands([x[:, a:b] for a, b in bounds]))
+                    launches = _launches()
+                    whole = model.logits(x)
+                    logits[dtype] = (torch.cat(banded.parts, dim=1), whole)
+                    ms = {k: _median_ms(torch, fn, 5, reps=1) for k, fn in (
+                        ("banded", lambda: model.logits(Bands([x[:, a:b] for a, b in bounds]))),
+                        ("whole", lambda: model.logits(x)))}
+                    print(f"[space] {name} weights, {str(dtype).split('.')[-1]} forward of one "
+                          f"32-slice chunk: 2 bands {ms['banded']:.3f} ms, whole "
+                          f"{ms['whole']:.3f} ms | launches per band "
+                          f"{ {k: v / 2 for k, v in launches.items()} }")
+                    want = {"bodymask_labels": 0, "avg_pool2": 8, "bilinear_up2": 8}
+                    self.check(launches == want, f"banded launches {launches}, expected {want}")
+                    if name == "random":
+                        for what, fn in (("whole", lambda: model.logits(x)),
+                                         ("2 bands", lambda: model.logits(
+                                             Bands([x[:, a:b] for a, b in bounds])))):
+                            self._space_profile(fn, f"{str(dtype).split('.')[-1]} {what}")
+                got, whole = logits[torch.float32]
+                err = float((got - whole).abs().max()) / float(whole.abs().max())
+                same = torch.equal(got.argmax(-1), whole.argmax(-1))
+                got16, whole16 = logits[torch.bfloat16]
+                agree = float((got16.argmax(-1) == whole16.argmax(-1)).float().mean())
+                print(f"[space] {name} weights, bands of {[b - a for a, b in bounds]} rows: f32 "
+                      f"(TF32 off) max |dlogit| {err:.3e} of the largest |logit| (bound "
+                      f"{SPACE_LOGIT_RTOL}), identical argmax {same} | bf16 argmax agreement "
+                      f"with the unbanded bf16 {agree:.7f} (bound {SPACE_BF16_AGREEMENT})")
+                self.check(err <= SPACE_LOGIT_RTOL and same, "banded f32 logits differ")
+                self.check(agree >= SPACE_BF16_AGREEMENT, f"banded bf16 agreement {agree}")
+        self._space_stencils()
+        meshes = {"1x2": make_mesh(devices=[dev] * 2, space=2),
+                  "2x2": make_mesh(devices=[dev] * 4, space=2)}
+        pred = self._space_inferer(meshes)
+        self._space_cleanup(meshes["2x2"], pred)
+        self._space_train(meshes["1x2"])
+
+    def _space_profile(self, fn, what: str, runs: int = 3):
+        """``torch.profiler`` over ``runs`` calls of a forward: its device
+        time (the kernels' summed durations) and kernels per call, and the
+        operators with the most kernel time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+        kernels = [e for e in prof.events() if e.device_type == cuda]
+        device_ms = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3 / runs
+        ops = sorted((e for e in prof.key_averages()
+                      if e.device_type == cpu and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+        top = "; ".join(f"{e.key} {e.self_device_time_total / 1e3 / runs:.3f} ms x"
+                        f"{e.count // runs}" for e in ops[:5])
+        print(f"[space] profile of one chunk's forward, random weights, {what}: device "
+              f"{device_ms:.3f} ms in {len(kernels) // runs} kernels per forward | operators by "
+              f"their kernels' time: {top or 'no device events recorded'}")
+
+    def _space_stencils(self):
+        """K2 and K2ᵀ at the bands' shapes, K3 and K3ᵀ at the padded bands'
+        (one or two halo rows) of every level, in a 32-slice chunk and a
+        train step of batch 8, bf16 and f32: bit-equal to their plain
+        versions; and K3 on each padded band, cropped, bit-equal to the
+        whole height's rows."""
+        torch = self.torch
+        from lungmask_tpu_torch.ops.kernels import stencil as st
+        from lungmask_tpu_torch.parallel.halo import Bands
+
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        checked = 0
+        for dtype in (torch.bfloat16, torch.float32):
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+
+            def same(a, b):
+                return torch.equal(a.view(bits), b.view(bits))
+
+            for b in (CHUNK, TRAIN_BATCH):
+                for _, h, w, c in POOL_SHAPES:
+                    x = torch.randn((b, h // 2, w, c), generator=gen, device=dev).to(dtype)
+                    g = torch.randn((b, h // 4, w // 2, c), generator=gen, device=dev).to(dtype)
+                    self.check(same(st.avg_pool2(x), st.avg_pool2_reference(x)),
+                               f"K2 differs at the band shape {tuple(x.shape)} {dtype}")
+                    self.check(same(st.avg_pool2_bwd(g, x.shape),
+                                    st.avg_pool2_bwd_reference(g, x.shape)),
+                               f"K2ᵀ differs at the band shape {tuple(x.shape)} {dtype}")
+                    checked += 2
+                for _, h, w, c in UP_SHAPES:
+                    for pad in (1, 2):
+                        x = torch.randn((b, h // 2 + pad, w, c), generator=gen, device=dev)
+                        x = x.to(dtype)
+                        g = torch.randn((b, 2 * x.shape[1], 2 * w, c), generator=gen, device=dev)
+                        g = g.to(dtype)
+                        g[:, -2:] = 0  # the cropped rows' gradient
+                        if pad == 2:
+                            g[:, :2] = 0
+                        self.check(same(st.bilinear_up2(x), st.bilinear_up2_reference(x)),
+                                   f"K3 differs at the padded band {tuple(x.shape)} {dtype}")
+                        self.check(same(st.bilinear_up2_bwd(g), st.bilinear_up2_bwd_reference(g)),
+                                   f"K3ᵀ differs at the padded band {tuple(x.shape)} {dtype}")
+                        checked += 2
+            for _, h, w, c in UP_SHAPES:
+                x = torch.randn((CHUNK, h, w, c), generator=gen, device=dev).to(dtype)
+                for space in (2, 4):
+                    rows = h // space
+                    bands = Bands([x[:, i * rows : (i + 1) * rows] for i in range(space)])
+                    up = bands.halo(st.bilinear_up2, rows=1, zeros=False, crop=2)
+                    self.check(same(torch.cat(up.parts, dim=1), st.bilinear_up2(x)),
+                               f"K3 on {space} padded bands of {tuple(x.shape)} differs")
+                    checked += 1
+        print(f"[space] K2/K2ᵀ at the bands' shapes, K3/K3ᵀ at the padded bands' (h/2 + 1 and "
+              f"h/2 + 2 rows, e.g. {[(CHUNK, h // 2 + 1, w, c) for _, h, w, c in UP_SHAPES]}), "
+              f"batch {CHUNK} and {TRAIN_BATCH}, bf16 and f32, and K3 on 2 and 4 padded bands "
+              f"cropped against the whole height: {checked} checks, all bit-equal")
+
+    def _space_inferer(self, meshes):
+        """``LMInferer(mesh=)`` over both meshes (sharded preprocessing), single
+        and fused, exact and device, against the unsharded device-mode
+        inferer; one f32 model too. Returns the unsharded class map of the
+        phantom (device mode) for the cleanup."""
+        import numpy as np
+
+        from lungmask_tpu_torch import LMInferer
+
+        from lungmask_tpu_torch.parallel.mesh import split_rows
+
+        vol = self.state["phantom"]
+        pred = None
+        for fused in (False, True):
+            kw = (dict(modelname="LTRCLobes", fillmodel="R231") if fused
+                  else dict(modelpath=self.state["weights"]))
+            models = 2 if fused else 1
+            for post in ("exact", "device"):
+                ref_inf = LMInferer(tqdm_disable=True, preprocessing="device",
+                                    postprocessing_mode=post, **kw)
+                ref = ref_inf.apply(vol)
+                if not fused and post == "device":
+                    pred = ref_inf.forward_preprocessed(ref_inf.preprocess_image(vol))
+                for mname, mesh in meshes.items():
+                    inf = LMInferer(tqdm_disable=True, mesh=mesh, postprocessing_mode=post, **kw)
+                    inf.apply(vol[:CHUNK])  # warm-up
+                    _reset_launches()
+                    t0 = time.perf_counter()
+                    mask = inf.apply(vol)
+                    wall = time.perf_counter() - t0
+                    launches = _launches(FORWARD + BACKWARD)
+                    # Each data row runs its slab in chunks of 32, each chunk as 2 bands.
+                    chunks = sum(-(-(b - a) // CHUNK)
+                                 for a, b in split_rows(len(vol), mesh.shape["data"]))
+                    want = {"bodymask_labels": mesh.shape["data"],
+                            "avg_pool2": 4 * chunks * models * 2,
+                            "bilinear_up2": 4 * chunks * models * 2,
+                            "avg_pool2_bwd": 0, "bilinear_up2_bwd": 0}
+                    differ = int((mask != ref).sum())
+                    print(f"[space] {mname} mesh {'fused' if fused else 'single'} {post}, bf16: "
+                          f"apply {wall:.4f} s | launches {launches} | voxels differing from "
+                          f"the unsharded preprocessing='device' mask: {differ} of {ref.size}")
+                    self.check(differ == 0 or differ < SPACE_VOXEL_SHARE * ref.size,
+                               f"{mname} {post}: {differ} voxels differ")
+                    self.check(launches == want, f"launches {launches}, expected {want}")
+        kw = dict(modelpath=self.state["weights"], tqdm_disable=True, precision="float32")
+        ref = LMInferer(preprocessing="device", **kw).apply(vol)
+        for mname, mesh in meshes.items():
+            t0 = time.perf_counter()
+            mask = LMInferer(mesh=mesh, **kw).apply(vol)
+            differ = int((mask != ref).sum())
+            print(f"[space] {mname} mesh single exact, f32 model: {time.perf_counter() - t0:.4f} s "
+                  f"(first call) | voxels differing from the unsharded f32 mask: {differ}")
+            self.check(differ == 0, f"{mname} f32: {differ} voxels differ")
+        return pred
+
+    def _space_cleanup(self, mesh, pred):
+        """``make_sharded_postprocess`` of the phantom's class map on the 2x2
+        mesh's blocks against ``postprocess_device``."""
+        torch = self.torch
+        from lungmask_tpu_torch.parallel import make_sharded_postprocess
+        from lungmask_tpu_torch.parallel.mesh import shard_blocks
+        from lungmask_tpu_torch.transforms.postprocess_device import postprocess_device
+
+        step = make_sharded_postprocess(mesh, 3)
+        blocks = shard_blocks(mesh, pred)
+        single = postprocess_device(pred, 3)
+        step(blocks)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = step(blocks)
+        torch.cuda.synchronize()
+        t_banded = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        postprocess_device(pred, 3)
+        torch.cuda.synchronize()
+        t_single = time.perf_counter() - t0
+        whole = torch.cat([torch.cat(row, dim=1) for row in got])
+        same = torch.equal(whole, single)
+        print(f"[space] make_sharded_postprocess of one {tuple(pred.shape)} class map over the "
+              f"2x2 mesh's blocks {[[tuple(b.shape) for b in row] for row in blocks]}: "
+              f"{t_banded:.4f} s against postprocess_device {t_single:.4f} s | bit-equal {same}")
+        self.check(same and all(b.is_cuda for row in got for b in row),
+                   "the banded cleanup differs")
+
+    def _space_train(self, mesh):
+        """``fit(mesh=1x2)`` beside the unsharded fit (bf16, 4 steps of batch
+        8) and one f32 step's loss and gradients against the unsharded
+        step's."""
+        import numpy as np
+
+        torch = self.torch
+        from lungmask_tpu_torch.models import unet
+        from lungmask_tpu_torch.train import default_optimizer, fit, init_train_state
+        from lungmask_tpu_torch.train import make_train_step
+        from lungmask_tpu_torch.train.data import SliceDataset
+
+        dev = torch.device("cuda", 0)
+        vol, mask = self.state["phantom"], self.state["mask"]
+        ds = SliceDataset([(vol[:MESH_TRAIN_SLICES], mask[:MESH_TRAIN_SLICES])], device=dev)
+        params = unet.init_params(3, generator=torch.Generator().manual_seed(0))
+        steps = MESH_TRAIN_SLICES // TRAIN_BATCH
+        kw = dict(batch_size=TRAIN_BATCH, optimizer=default_optimizer(steps, peak_lr=TRAIN_PEAK_LR),
+                  seed=0, log_every=1, compute_dtype=torch.bfloat16)
+        runs = {}
+        for name, extra in (("unsharded", dict(device=dev)), ("1x2", dict(mesh=mesh))):
+            _reset_launches()
+            t0 = time.perf_counter()
+            res = fit(params, ds, **kw, **extra)
+            torch.cuda.synchronize()
+            runs[name] = ([h["loss"] for h in res.history if "loss" in h],
+                          time.perf_counter() - t0, _launches(FORWARD + BACKWARD))
+        losses, wall, launches = runs["1x2"]
+        ref = runs["unsharded"][0]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        want = {"bodymask_labels": 0, "avg_pool2": 8 * steps, "bilinear_up2": 8 * steps,
+                "avg_pool2_bwd": 8 * steps, "bilinear_up2_bwd": 8 * steps}
+        print(f"[space] fit(mesh=1x2), {steps} bf16 steps of batch {TRAIN_BATCH} (2 bands of 128 "
+              f"rows, wf=6): {wall:.4f} s | launches {launches} "
+              f"(K2/K3/K2ᵀ/K3ᵀ 8/8/8/8 per step) "
+              f"| losses " + ", ".join(f"{v:.6f}" for v in losses) + " | unsharded fit: "
+              + ", ".join(f"{v:.6f}" for v in ref) + f" in {runs['unsharded'][1]:.4f} s | "
+              f"largest relative difference {rel:.3e} (bound {SPACE_LOSS_RTOL})")
+        self.check(launches == want, f"fit(mesh=1x2) launches {launches}, expected {want}")
+        self.check(len(losses) == steps and rel <= SPACE_LOSS_RTOL, f"losses {losses} vs {ref}")
+
+        class Recorder:  # keeps the step's gradients, moves no weight
+            def init(self, params):
+                return None
+
+            def update(self, grads, state, params):
+                self.grads = {k: g.clone() for k, g in grads.items()}
+                return {k: torch.zeros_like(g) for k, g in grads.items()}, state
+
+        im, lb = next(ds.batches(TRAIN_BATCH, seed=0))
+
+        def grads(mesh_):
+            rec = Recorder()
+            state = init_train_state(params, rec, dev)
+            _, loss = make_train_step(rec, mesh=mesh_, compute_dtype=torch.float32)(state, im, lb)
+            return float(loss), rec.grads
+
+        l_ref, g_ref = grads(None)
+        l_band, g_band = grads(mesh)
+        worst = max(float((g_band[k] - g).abs().max() / g.abs().max()) for k, g in g_ref.items())
+        print(f"[space] one f32 step (batch {TRAIN_BATCH}, wf=6) over the 1x2 mesh: loss "
+              f"{l_band:.7f} vs unsharded {l_ref:.7f} | worst gradient leaf difference "
+              f"{worst:.3e} of its largest (bound {SPACE_GRAD_RTOL})")
+        self.check(abs(l_band - l_ref) <= 1e-5 * abs(l_ref), "the banded f32 loss differs")
+        self.check(worst <= SPACE_GRAD_RTOL, f"the banded f32 gradients differ by {worst}")
+
+        state = init_train_state(params, kw["optimizer"], dev)
+        step_fn = make_train_step(kw["optimizer"], mesh=mesh, compute_dtype=torch.bfloat16)
+        x, y = torch.as_tensor(im).to(dev), torch.as_tensor(lb).to(dev)
+        state, _ = step_fn(state, x, y)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, x, y)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        print(f"[space] banded train step (1x2 on one card, batch {TRAIN_BATCH}, bf16): median "
+              f"{float(np.median(times)):.3f} ms of 5 (range {min(times):.3f}-{max(times):.3f}) "
+              f"({self.state['smi']})")
+
 def main() -> int:
     import torch
 
@@ -1727,7 +2054,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    import lungmask_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    try:
+        import lungmask_tpu_torch  # noqa: F401
+    except ImportError as e:  # the script alone, outside a checkout of the repository
+        print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
+        return 1
 
     smoke = Smoke(torch)
     with tempfile.TemporaryDirectory(prefix="lungmask_smoke_") as tmp:
@@ -1748,10 +2079,12 @@ def main() -> int:
             "variants": {"phantom": "kernel", "smi": "device"},
             "mesh": {"phantom": "kernel", "mask": "inferer", "weights": "inferer",
                      "cache": "fused", "smi": "device"},
+            "space": {"phantom": "kernel", "params": "unet", "mask": "inferer",
+                      "weights": "inferer", "cache": "fused", "smi": "device"},
         }
         for name in ("device", "build", "kernel", "unet", "stencil", "fused", "inferer", "cli",
                      "dicom", "postdev", "cohort", "serve", "devprep", "train", "variants",
-                     "mesh"):
+                     "mesh", "space"):
             missing = [(key, maker) for key, maker in needs.get(name, {}).items()
                        if key not in smoke.state]
             if missing:

@@ -16,10 +16,12 @@ device and is cleaned there (``transforms/postprocess_device.py``); only the
 crumb-packed result comes down.
 
 With a device mesh (``mesh=``, ``parallel/mesh.py``) the slices split over
-its data axis: preprocessing defaults to ``"sharded"`` (device mode, each
-slab on its own device), the U-Net runs as ``parallel.ShardedUNetRunner``
-and device postprocessing as ``parallel.make_sharded_postprocess``, the
-class map staying in slabs until the cleaned mask comes down.
+its data axis and, with ``space > 1``, each slab's height into bands over
+its row's space devices: preprocessing defaults to ``"sharded"`` (device
+mode, each slab on its own data device, then split into bands), the U-Net
+runs as ``parallel.ShardedUNetRunner`` and device postprocessing as
+``parallel.make_sharded_postprocess``, the class map staying in blocks
+until the cleaned mask comes down.
 
 The fused two-model mode (``fillmodel=``, the CLI's ``LTRCLobes_R231``)
 preprocesses once, runs both U-Nets chunk by chunk over the one stack,
@@ -113,10 +115,10 @@ class LMInferer:
                 An explicit value is honoured with a mesh too.
             precision: 'bfloat16' (default) or 'float32' (cuDNN TF32 off).
             mesh: a ``parallel.Mesh`` (``parallel.make_mesh``): the slices
-                split over its data axis for the U-Net, for the default
-                preprocessing and for device postprocessing. ``batch_size``
-                is then per chunk over the whole mesh (default 32 per
-                device).
+                split over its data axis (and their height over its space
+                axis) for the U-Net, for the default preprocessing and for
+                device postprocessing. ``batch_size`` is then per chunk
+                over the whole mesh (default 32 per data row).
             postprocessing_mode: 'exact' (the host C++ core, bit-faithful to
                 the reference) or 'device' (largest component + hole fill on
                 the inferer's device, without the small-region merge; see
@@ -271,7 +273,7 @@ class LMInferer:
         """Wait for the device work queued so far (on every device of the
         mesh): a stage that leaves its result on the device must still end
         when its work does, or its seconds land in the next stage."""
-        devices = [self.device] if self.mesh is None else set(self.mesh.data_devices)
+        devices = [self.device] if self.mesh is None else set(self.mesh.devices.ravel())
         for dev in devices:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -281,9 +283,10 @@ class LMInferer:
         """Device-mode cleanup on the inferer's device (a host map is
         uploaded first); the result comes down crumb-packed where it can
         (≤ 4 classes, W % 4 == 0), a quarter of the dense bytes. With a mesh
-        the map stays in slabs over the data axis
+        the map stays in blocks over the mesh
         (``parallel.make_sharded_postprocess``); a map that arrives whole is
-        split into slabs there."""
+        split into blocks there. Each block comes down on its own; the
+        bands of a slab are joined on the host."""
         if self.mesh is None:
             pred = torch.as_tensor(pred).to(self.device)
             if n_classes <= 4 and pred.shape[2] % 4 == 0:
@@ -294,9 +297,14 @@ class LMInferer:
             step = self._sharded_post[n_classes] = make_sharded_postprocess(self.mesh, n_classes)
         if not isinstance(pred, (list, tuple)):
             pred = torch.as_tensor(pred)
-        crumbs = n_classes <= 4 and pred[0].shape[-1] % 4 == 0
-        out = np.concatenate([pack_bits(s, 2).cpu().numpy() if crumbs else s.cpu().numpy()
-                              for s in step(pred)])
+        blocks = step(pred)
+        if self.mesh.shape["space"] == 1:
+            blocks = [[s] for s in blocks]
+        crumbs = n_classes <= 4 and blocks[0][0].shape[-1] % 4 == 0
+        out = np.concatenate([
+            np.concatenate([pack_bits(b, 2).cpu().numpy() if crumbs else b.cpu().numpy()
+                            for b in row], axis=1)
+            for row in blocks])
         return unpack_crumbs(out) if crumbs else out
 
     def _finish_volume(self, pred_np, boxes, slice_shape, n_classes, bar=None) -> np.ndarray:

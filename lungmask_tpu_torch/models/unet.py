@@ -39,6 +39,15 @@ the JAX package does (``models/convert.convert_state_dict`` writes them):
 ``float32`` runs with cuDNN's TF32 turned off for the call
 (``torch.backends.cudnn.flags``), so f32 logits are full float32 on a GPU.
 
+The mesh's ``space`` axis: every block's forward takes either a tensor or
+the height bands of one data row (``parallel.halo.Bands``), which it runs
+layer by layer, each band on its own device with the weights copied there
+(:func:`_each`). Only the 3×3 convolutions (:func:`_conv`), K3
+(:func:`_up2`) and the skip's crop (:func:`_center_crop`) read across
+bands; pooling, the 1×1 convolutions, the upconv, the head and the
+elementwise epilogues stay inside each band. A tensor takes the same path
+as before.
+
 Two ways to hold the weights, one forward:
 
 * inference (the default): buffers, the kernels pre-cast to the compute
@@ -77,14 +86,30 @@ def encoder_channels(depth: int = DEPTH, wf: int = WF) -> List[int]:
     return [2 ** (wf + i) for i in range(depth)]
 
 
-def _center_crop(skip: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def _each(fn, x, *args):
+    """``fn(x, *args)`` on a tensor; on ``parallel.halo.Bands``, on each
+    band, with each tensor argument (a weight) copied to the band's
+    device."""
+    return fn(x, *args) if isinstance(x, torch.Tensor) else x.map(fn, *args)
+
+
+def _center_crop(skip, up):
     """The reference's UNetUpBlock.center_crop (resunet.py:136-142) on NCHW:
-    a no-op at power-of-two sizes, load-bearing for odd input sizes."""
-    sh, sw = skip.shape[2], skip.shape[3]
-    if (sh, sw) == (h, w):
+    ``skip`` cropped to ``up``'s height and width, centred; a no-op at
+    power-of-two sizes, load-bearing for odd input sizes. On bands, the
+    cropped rows are split as ``up``'s bands are (``Bands.regrid``)."""
+    if isinstance(up, torch.Tensor):
+        h, w = up.shape[2], up.shape[3]
+        sh, sw = skip.shape[2], skip.shape[3]
+    else:
+        h, w = sum(up.rows), up.parts[0].shape[3]
+        sh, sw = sum(skip.rows), skip.parts[0].shape[3]
+    if (sh, sw) == (h, w) and (isinstance(skip, torch.Tensor) or skip.rows == up.rows):
         return skip
     dy, dx = (sh - h) // 2, (sw - w) // 2
-    return skip[:, :, dy : dy + h, dx : dx + w]
+    if isinstance(skip, torch.Tensor):
+        return skip[:, :, dy : dy + h, dx : dx + w]
+    return skip.regrid(dy, up).map(lambda y: y[:, :, :, dx : dx + w])
 
 
 def _hold(module: nn.Module, name: str, value: torch.Tensor, trainable: bool,
@@ -116,20 +141,57 @@ def _subtree(module: nn.Module, prefix: str, pick) -> Params:
     return node
 
 
+def _add_to(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (a + b).to(dtype)
+
+
 def _vec(t: torch.Tensor) -> torch.Tensor:
     """A (C,) per-channel vector as (1, C, 1, 1)."""
     return t.view(1, -1, 1, 1)
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A 3×3 (zero-padded) or 1×1 convolution in ``x``'s dtype, its output
-    in float32 plus the float32 bias."""
-    return F.conv2d(x, w.to(x.dtype), padding=w.shape[-1] // 2).float() + _vec(b)
+def _conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, padding) -> torch.Tensor:
+    return F.conv2d(x, w.to(x.dtype), padding=padding).float() + _vec(b)
 
 
-def _affine(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def _conv(x, w: torch.Tensor, b: torch.Tensor):
+    """A 3×3 (zero-padded; between bands, the neighbours' rows) or 1×1
+    convolution in ``x``'s dtype, its output in float32 plus the float32
+    bias."""
+    k = w.shape[-1] // 2
+    if isinstance(x, torch.Tensor) or k == 0:
+        return _each(_conv2d, x, w, b, k)
+    return x.halo(_conv2d, w, b, (0, k), rows=k, zeros=True)
+
+
+def _affine(x, s: torch.Tensor, t: torch.Tensor):
     """A folded BatchNorm in ``x``'s dtype (JAX's ``_affine``)."""
-    return x * _vec(s).to(x.dtype) + _vec(t).to(x.dtype)
+    return _each(lambda y, s, t: y * _vec(s).to(y.dtype) + _vec(t).to(y.dtype), x, s, t)
+
+
+def _nhwc_op(y: torch.Tensor, op) -> torch.Tensor:
+    """``op`` (a stencil of ``ops/kernels/stencil``) on the NHWC view of an
+    NCHW channels_last tensor, which is contiguous: no copy."""
+    return op(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def _pool(x):
+    """K2 (2×2 average pooling). On bands, each band's own rows: every band
+    but the last must hold an even number of rows."""
+    if not isinstance(x, torch.Tensor) and any(r % 2 for r in x.rows[:-1]):
+        raise ValueError(
+            f"bands of {x.rows} rows: every band but the last must start at a multiple "
+            "of 2 ** (depth - 1) rows (parallel.mesh.split_bands)"
+        )
+    return _each(_nhwc_op, x, stencil.avg_pool2)
+
+
+def _up2(x):
+    """K3 (bilinear ×2). On bands, each band padded with a neighbour row on
+    each inner side, its 2 output rows there cropped (``parallel.halo``)."""
+    if isinstance(x, torch.Tensor):
+        return _nhwc_op(x, stencil.bilinear_up2)
+    return x.halo(_nhwc_op, stencil.bilinear_up2, rows=1, zeros=False, crop=2)
 
 
 class ResPath(nn.Module):
@@ -142,7 +204,7 @@ class ResPath(nn.Module):
         _hold(self, "s", p["bn"]["scale"], trainable, torch.float32, ("bn", "scale"))
         _hold(self, "t", p["bn"]["bias"], trainable, torch.float32, ("bn", "bias"))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         return _affine(_conv(x, self.w, self.b), self.s, self.t)
 
 
@@ -165,17 +227,34 @@ class ConvBlock(nn.Module):
 
     @staticmethod
     def _stage(x, w, b, s, t):
-        return (torch.relu(_conv(x, w, b)) * _vec(s) + _vec(t)).to(x.dtype)
+        def epilogue(y, s, t, dtype):
+            return (torch.relu(y) * _vec(s) + _vec(t)).to(dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _each(epilogue, _conv(x, w, b), s, t, x.dtype)
+
+    def forward(self, x):
         if self.res is None:
             x = self._stage(x, self.w1, self.b1, self.s_bn1, self.t_bn1)
             return self._stage(x, self.w2, self.b2, self.s_bn2, self.t_bn2)
         inp = x
         if hasattr(self, "s_bn_pre"):
-            x = _affine(torch.relu(x), self.s_bn_pre, self.t_bn_pre)
+            x = _affine(_each(torch.relu, x), self.s_bn_pre, self.t_bn_pre)
         x = self._stage(x, self.w1, self.b1, self.s_bn1, self.t_bn1)
-        return (_conv(x, self.w2, self.b2) + self.res(inp)).to(inp.dtype)
+        return _each(_add_to, _conv(x, self.w2, self.b2), self.res(inp), inp.dtype)
+
+
+def _upconv2(x: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor) -> torch.Tensor:
+    """Kernel-2 stride-2 transposed conv (JAX ``unet._upconv2``): the output
+    blocks do not overlap, so ``out[2i+dy, 2j+dx, o] = Σ_c x[i,j,c]·W[o,c,dy,dx]
+    + b[o]`` is one matmul per pixel into 4·cout phase channels, multiplied
+    in float32 (exact for bf16 values, as JAX accumulates), then
+    interleaved."""
+    n, cin, h, w = x.shape
+    cout = wp.shape[0]
+    k = wp.to(x.dtype).permute(1, 2, 3, 0).reshape(cin, 4 * cout).float()
+    y = torch.matmul(x.permute(0, 2, 3, 1).float(), k)
+    y = y.view(n, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, cout)
+    return (y + bp).to(x.dtype).permute(0, 3, 1, 2)
 
 
 class UpBlock(nn.Module):
@@ -192,31 +271,18 @@ class UpBlock(nn.Module):
         self.conv_block = ConvBlock(p["conv_block"], compute_dtype, trainable)
         self.res = ResPath(p["res"], compute_dtype, trainable) if "res" in p else None
 
-    def _upconv2(self, x: torch.Tensor) -> torch.Tensor:
-        """Kernel-2 stride-2 transposed conv (JAX ``unet._upconv2``): the
-        output blocks do not overlap, so ``out[2i+dy, 2j+dx, o] = Σ_c
-        x[i,j,c]·W[o,c,dy,dx] + b[o]`` is one matmul per pixel into 4·cout
-        phase channels, multiplied in float32 (exact for bf16 values, as
-        JAX accumulates), then interleaved."""
-        n, cin, h, w = x.shape
-        cout = self.wp.shape[0]
-        k = self.wp.to(x.dtype).permute(1, 2, 3, 0).reshape(cin, 4 * cout).float()
-        y = torch.matmul(x.permute(0, 2, 3, 1).float(), k)
-        y = y.view(n, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, cout)
-        return (y + self.bp).to(x.dtype).permute(0, 3, 1, 2)
-
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    def forward(self, x, skip):
         if self.upconv:
-            up = self._upconv2(x)
+            up = _each(_upconv2, x, self.wp, self.bp)
         else:
-            up = stencil.bilinear_up2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-            up = _conv(up, self.wp, self.bp).to(up.dtype)
-        skip = _center_crop(skip, up.shape[2], up.shape[3])
-        x = torch.cat([up, skip], dim=1)
+            up = _up2(x)
+            up = _each(lambda y, dtype: y.to(dtype), _conv(up, self.wp, self.bp), up.dtype)
+        skip = _center_crop(skip, up)
+        x = _each(lambda u, s: torch.cat([u, s], dim=1), up, skip)
         out = self.conv_block(x)
         if self.res is None:
             return out
-        return (out + self.res(x)).to(out.dtype)
+        return _each(_add_to, out, self.res(x), out.dtype)
 
 
 class UNet(nn.Module):
@@ -241,22 +307,31 @@ class UNet(nn.Module):
         """(N, H, W, 1) NHWC → (N, H, W, K) float32 logits."""
         return self.logits(x)
 
-    def logits(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """:meth:`forward` in ``compute_dtype`` (the model's by default)."""
+    def logits(self, x, compute_dtype: Optional[torch.dtype] = None):
+        """:meth:`forward` in ``compute_dtype`` (the model's by default). On
+        the NHWC bands of one data row (``parallel.halo.Bands``), the NHWC
+        logits' bands."""
         dtype = self.compute_dtype if compute_dtype is None else compute_dtype
+
+        def nchw(y):
+            return y.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
+
+        def head(y, wl, bl):
+            return torch.matmul(y.permute(0, 2, 3, 1).float(), wl.to(dtype).float()) + bl
+
         with conv_flags(dtype):
-            x = x.permute(0, 3, 1, 2).to(dtype)
-            x = x.contiguous(memory_format=torch.channels_last)
+            x = nchw(x) if isinstance(x, torch.Tensor) else x.map(nchw, dim=2)
             skips = []
             for i, block in enumerate(self.down):
                 x = block(x)
                 if i != len(self.down) - 1:
                     skips.append(x)
-                    x = stencil.avg_pool2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                    x = _pool(x)
             for i, block in enumerate(self.up):
                 x = block(x, skips[-i - 1])
-            nhwc = x.permute(0, 2, 3, 1).float()
-            return torch.matmul(nhwc, self.wl.to(dtype).float()) + self.bl
+            if isinstance(x, torch.Tensor):
+                return head(x, self.wl, self.bl)
+            return x.map(head, self.wl, self.bl, dim=1)
 
     def tree(self, of: Optional[Dict[str, torch.Tensor]] = None) -> Params:
         """The port tree (OIHW kernels, (C,) vectors) of the weights this

@@ -95,9 +95,9 @@ def fit(
     * ``checkpoint_path`` + ``checkpoint_every`` — periodic exact-resume
       snapshots via ``train.checkpoint`` (also written at the end).
     * ``mesh`` — a ``parallel.Mesh``: each batch splits over its data axis
-      (``batch_size`` must divide over it), the weights and the optimizer's
-      state live on its first data device, evaluation runs there
-      (``make_train_step(mesh=)``).
+      (``batch_size`` must divide over it) and each part's slice height over
+      its space axis, the weights and the optimizer's state live on its
+      first data device, evaluation runs there (``make_train_step(mesh=)``).
     """
     if mesh is not None:
         ndata = mesh.shape["data"]

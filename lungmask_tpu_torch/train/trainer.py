@@ -14,11 +14,14 @@
   activation memory.
 * ``mesh=`` (the sharded step, :func:`_sharded_step`): the batch splits
   over the mesh's data axis, one replica of the weights per part on its
-  device; the parts' loss sums meet on the first device, the gradient of
-  each replica is summed into the state's model in mesh order, and one
-  optimizer update runs there. In a group of several processes
-  (``parallel.multihost``), the loss sums and the gradients are also
-  summed over the group.
+  device, and with ``space > 1`` each part's images and labels split by
+  height into bands over its row's space devices (JAX's ``P("data",
+  "space")``), run in lockstep with halo rows (``parallel/halo.py``); the
+  blocks' loss sums meet on the first device, the gradient of each replica
+  is summed into the state's model in mesh order, and one optimizer update
+  runs there. In a group of several processes (``parallel.multihost``),
+  the loss sums and the gradients are also summed over the group; the
+  space axis spans only each process's own devices.
 """
 
 from __future__ import annotations
@@ -137,27 +140,41 @@ def _replicas(master: unet.UNet, devices) -> List[unet.UNet]:
 
 def _sharded_step(optimizer: AdamW, mesh, compute_dtype: torch.dtype, dice_weight: float,
                   remat: bool):
-    """The train step over the data axis of ``mesh`` (module docstring).
+    """The train step over the data and space axes of ``mesh`` (module
+    docstring).
 
     The loss is the unsharded step's: its cross-entropy the summed NLL over
     the pixel count of the whole batch, its Dice from the per-class sums
     over the whole batch — never an average of the parts' losses, which
-    weighs each part's Dice alike and is another function. Autograd carries
-    the gradient back through the copies of the parts' sums to the first
-    device. In a process group (``torch.distributed`` initialised), the
-    sums meet by a differentiable all-reduce — every process passes a batch
-    of the same size — whose backward sums the loss's gradient over the
-    group once more, so each replica's gradient is divided by the group's
-    size once before the gradients are summed over the group."""
-    from lungmask_tpu_torch.parallel.mesh import shard_batch
+    weighs each part's Dice alike and is another function. Each block
+    (a data row's band) gives its sums. Autograd carries the gradient back
+    through the copies of the blocks' sums to the first device, through the
+    halo copies to the bands that own those rows, and through each band's
+    copy of its row's weights to that row's replica. In a process group
+    (``torch.distributed`` initialised), the sums meet by a differentiable
+    all-reduce — every process passes a batch of the same size — whose
+    backward sums the loss's gradient over the group once more, so each
+    replica's gradient is divided by the group's size once before the
+    gradients are summed over the group. ``remat`` checkpoints a data row's
+    forward as a whole: a band's forward needs its neighbours'."""
+    from lungmask_tpu_torch.parallel.halo import Bands
+    from lungmask_tpu_torch.parallel.mesh import shard_bands, shard_batch
 
     devices = mesh.data_devices
+    space = mesh.shape["space"]
     held = {"master": None, "replicas": []}
 
-    def logits_of(model, x):
+    def row_logits(model, *bands):
+        """A data row's logits: a list of its bands' (one band: the
+        unbanded forward)."""
+        if len(bands) == 1:
+            return [model.logits(bands[0], compute_dtype)]
+        return model.logits(Bands(bands), compute_dtype).parts
+
+    def logits_of(model, bands):
         if remat:
-            return checkpoint(model.logits, x, compute_dtype, use_reentrant=False)
-        return model.logits(x, compute_dtype)
+            return checkpoint(row_logits, model, *bands, use_reentrant=False)
+        return row_logits(model, *bands)
 
     def step(state: TrainState, images, labels) -> Tuple[TrainState, torch.Tensor]:
         master = state.model
@@ -170,6 +187,13 @@ def _sharded_step(optimizer: AdamW, mesh, compute_dtype: torch.dtype, dice_weigh
         models = held["replicas"]
         images, labels = torch.as_tensor(images), torch.as_tensor(labels)
         xs, ys = shard_batch(mesh, images), shard_batch(mesh, labels)
+        if space > 1:  # labels' bands without rows have no logits
+            depth = len(master.down)
+            xs = [shard_bands(mesh, d, x, depth) for d, x in enumerate(xs)]
+            ys = [[y for y in shard_bands(mesh, d, y, depth) if y.shape[1]]
+                  for d, y in enumerate(ys)]
+        else:
+            xs, ys = [[x] for x in xs], [[y] for y in ys]
         grouped = dist.is_available() and dist.is_initialized()
         with torch.inference_mode(False), torch.enable_grad(), unet.conv_flags(compute_dtype):
             with torch.no_grad():
@@ -180,11 +204,11 @@ def _sharded_step(optimizer: AdamW, mesh, compute_dtype: torch.dtype, dice_weigh
                 m.zero_grad(set_to_none=True)
             sums = None
             for m, x, y in zip(models, xs, ys):
-                logits = logits_of(m, x)
-                nll = -torch.gather(torch.log_softmax(logits, dim=-1), -1,
-                                    y.unsqueeze(-1).long()).sum()
-                part = torch.cat([nll.view(1), *_dice_sums(logits, y)]).to(first)
-                sums = part if sums is None else sums + part
+                for logits, lab in zip(logits_of(m, x), y):
+                    nll = -torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                                        lab.unsqueeze(-1).long()).sum()
+                    part = torch.cat([nll.view(1), *_dice_sums(logits, lab)]).to(first)
+                    sums = part if sums is None else sums + part
             count = labels.numel()
             if grouped:
                 from torch.distributed.nn.functional import all_reduce

@@ -27,7 +27,8 @@ stack is cast and uploaded the same way.
 Sharded mode (:func:`preprocess_sharded`, ``preprocessing="sharded"`` with
 a mesh): device mode with the raw volume split over the mesh's data axis
 into slabs, each slab's boxes (K1 included) and normalized slices computed
-on its own device; the stack stays in slabs for the sharded U-Net.
+on its own device; the stack stays in slabs (each split into bands over
+its row's space devices, with ``space > 1``) for the sharded U-Net.
 
 Every entry point computes on CUDA unless its ``device`` is ``"cpu"``
 (``utils/device.resolve_device``).
@@ -42,7 +43,7 @@ import torch
 
 from lungmask_tpu_torch.ops import cc, morphology, resample
 from lungmask_tpu_torch.ops.kernels.bodymask import bodymask_labels
-from lungmask_tpu_torch.parallel.mesh import split_rows
+from lungmask_tpu_torch.parallel.mesh import shard_bands, split_rows
 from lungmask_tpu_torch.utils.device import resolve_device
 
 HU_LO = -1024
@@ -236,15 +237,19 @@ def preprocess_sharded(
     mesh,
     resolution: Tuple[int, int] = (256, 256),
     compute_dtype: torch.dtype = torch.float32,
-) -> Tuple[List[torch.Tensor], np.ndarray]:
+) -> Tuple[list, np.ndarray]:
     """:func:`preprocess` over a mesh: the raw volume split over the data
     axis (``parallel.mesh.split_rows``), each slab clipped, boxed (K1) and
-    cropped + resized + normalized on its own device.
+    cropped + resized + normalized on its own data device, as JAX shards
+    its preprocessing over ``data`` alone; with ``space > 1`` each slab is
+    then split into its row's bands (``parallel.mesh.shard_bands``).
 
     Returns:
         normalized: one (n_d, res, res) slab per data device, in
             ``compute_dtype``, on that device; stacked, equal to
-            :func:`preprocess`'s stack.
+            :func:`preprocess`'s stack. With ``space > 1``, each data
+            device's entry is the list of its slab's bands, band s on
+            ``mesh.devices[d, s]``.
         boxes: (N, 4) int32 numpy crop boxes, equal to :func:`preprocess`'s.
     """
     raws = _upload_slabs(np.asarray(volume), mesh)
@@ -258,6 +263,8 @@ def preprocess_sharded(
             torch.zeros((0,) + tuple(resolution), device=raw.device))
         normalized.append(slab.to(compute_dtype))
         row += n
+    if mesh.shape["space"] > 1:
+        normalized = [shard_bands(mesh, d, slab) for d, slab in enumerate(normalized)]
     return normalized, boxes
 
 

@@ -44,7 +44,7 @@ def test_port_imports_without_jax_or_tqdm():
         "from lungmask_tpu_torch.train import (augment, checkpoint, data, finetune, loop, optim,\n"
         "                                      store, trainer)\n"
         "import lungmask_tpu_torch.parallel\n"
-        "from lungmask_tpu_torch.parallel import mesh, multihost, sharded\n"
+        "from lungmask_tpu_torch.parallel import halo, mesh, multihost, sharded\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm', 'PIL'))\n"
         "assert not bad, bad\n"
@@ -88,6 +88,33 @@ def test_dicom_series_without_jax_tqdm_or_pillow(tmp_path):
         "back = loader.load_input_image(out.rsplit('/', 1)[0])\n"
         "assert np.array_equal(back.array, vol) and back.spacing == (0.7, 0.7, 2.5)\n"
         "assert np.array_equal(codecs.j2k_decode(codecs.htj2k_encode(vol[0])), vol[0])\n"
+        "print('ok')\n"
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_halo_bands_without_jax():
+    """``parallel/halo.py`` imported first in a fresh interpreter (so every
+    module it reaches is imported by it), then a banded forward and a
+    banded cleanup over a space mesh, with the machine's missing packages
+    blocked."""
+    res = _run(
+        "from lungmask_tpu_torch.parallel import halo\n"
+        "import numpy as np, torch\n"
+        "from lungmask_tpu_torch.models import unet\n"
+        "from lungmask_tpu_torch.parallel import make_mesh, make_sharded_postprocess\n"
+        "from lungmask_tpu_torch.parallel.mesh import split_bands\n"
+        "model = unet.UNet(unet.init_params(3, wf=2, generator=torch.Generator().manual_seed(0)))\n"
+        "x = torch.rand(1, 64, 32, 1)\n"
+        "out = model.logits(halo.Bands([x[:, a:b] for a, b in split_bands(64, 2)]))\n"
+        "assert torch.allclose(torch.cat(out.parts, 1), model.logits(x), atol=1e-5)\n"
+        "mesh = make_mesh(devices=['cpu'] * 2, space=2)\n"
+        "blocks = make_sharded_postprocess(mesh, 3)(torch.zeros((2, 32, 8), dtype=torch.uint8))\n"
+        "assert [tuple(b.shape) for b in blocks[0]] == [(2, 16, 8), (2, 16, 8)]\n"
+        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm', 'PIL'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     assert res.returncode == 0, res.stderr

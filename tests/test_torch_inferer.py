@@ -120,17 +120,20 @@ def test_no_silent_cpu_fallback(weights):
 
 
 @pytest.mark.parametrize("case", ["sharded without a mesh", "the space axis"])
-def test_unported_options_raise(weights, case):
-    """The mesh (item 10) is ported: ``preprocessing="sharded"`` needs one,
-    and of the mesh only its space axis (item 10b) still raises."""
+def test_unported_options_raise(weights, phantom, case):
+    """The mesh (items 10 and 10b) is ported: ``preprocessing="sharded"``
+    needs one, and a mesh with a space axis runs, its mask equal to the
+    unsharded device-preprocessing mask."""
     from lungmask_tpu_torch.parallel import make_mesh
 
     if case == "sharded without a mesh":
         with pytest.raises(ValueError, match="requires mesh"):
             LMInferer(modelpath=weights, device="cpu", preprocessing="sharded")
     else:
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            LMInferer(modelpath=weights, mesh=make_mesh(devices=["cpu"] * 2, space=2))
+        kw = dict(modelpath=weights, tqdm_disable=True, precision="float32")
+        inferer = LMInferer(mesh=make_mesh(devices=["cpu"] * 2, space=2), **kw)
+        want = LMInferer(device="cpu", preprocessing="device", **kw).apply(phantom)
+        np.testing.assert_array_equal(inferer.apply(phantom), want)
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int8, np.bool_, np.int16, np.float32])

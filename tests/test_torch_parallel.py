@@ -57,8 +57,9 @@ def test_mesh_shapes_and_errors():
     assert mesh.data_devices == [torch.device("cpu")] * 4
     with pytest.raises(ValueError, match="does not match"):
         make_mesh(data=3, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        make_mesh(space=2, devices=["cpu"] * 4)
+    grid = make_mesh(space=2, devices=["cpu"] * 4)  # the space axis (item 10b)
+    assert grid.shape == {"data": 2, "space": 2} and grid.devices.shape == (2, 2)
+    assert grid.space_devices(1) == [torch.device("cpu")] * 2 and len(grid.data_devices) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh()

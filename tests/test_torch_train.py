@@ -338,8 +338,14 @@ def test_fit_improves_loss_and_checkpoints(tmp_path):
 
     with pytest.raises(ValueError, match="split evenly"):  # the sharded loop's batch
         fit(params, ds, batch_size=3, mesh=make_mesh(devices=["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="item 10b"):  # the mesh's space axis
-        make_train_step(default_optimizer(4), mesh=make_mesh(devices=["cpu"] * 2, space=2))
+    # The mesh's space axis: one step over two bands, the unsharded step's loss.
+    images, labels = next(ds.batches(2, seed=0))
+    losses = []
+    for mesh in (None, make_mesh(devices=["cpu"] * 2, space=2)):
+        step = make_train_step(default_optimizer(4), mesh=mesh, compute_dtype=torch.float32)
+        _, loss = step(init_train_state(params, default_optimizer(4)), images, labels)
+        losses.append(float(loss))
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
 
 
 def test_finetune_cli_weights_load_in_jax(tmp_path):
