@@ -82,9 +82,13 @@ seed, with crafted weights:
   largest) and the banded step's time.
 
 Each path's calls run with every kernel's launch count set to 0 just before
-them and read just after. Kernel times are CUDA-event medians over runs of
-20 back-to-back launches (so the wrapper's host work between launches stays
-out of the window), beside each kernel's bound: the larger of its bytes
+them and read just after. The stencils' times at the U-Net's bf16 shapes
+come in three readings: back to back, the CUDA-event median over runs of
+20 calls of the wrapper (where the wrapper's host work per call is longer
+than the kernel, this reads the host); the card's own time per launch, the
+mean duration of the kernel's CUDA events in one ``torch.profiler`` window
+over 20 calls per shape; and the host's µs per call, the wall time to make
+200 calls. Each stands beside the kernel's bound: the larger of its bytes
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32, no tensor
 cores), the H100 SXM's published peaks. An adjoint's library time is one
 call of torch's own backward op for the same function
@@ -138,6 +142,9 @@ ODD_SHAPES = [(3, 33, 35, 4), (2, 17, 9, 12), (1, 3, 3, 5), (2, 8, 8, 3)]
 # K3 at shapes that straddle its tiles, and at the U-Net's upsamples of a
 # 96² volume's host-preprocessed stack (96² slices reach K3 at 6² to 48²).
 TILE_SHAPES = [(2, 37, 70, 24), (1, 5, 129, 136), (1, 1, 1, 8), (1, 1, 3, 5)]
+# K3ᵀ's outputs that straddle its tiles: ragged row and column tiles and a
+# short last channel slab.
+ADJOINT_TILE_SHAPES = [(2, 19, 13, 264), (1, 10, 9, 520)]
 VOLUME96_SHAPES = [(2, 6, 6, 1024), (2, 12, 12, 512), (2, 24, 24, 256), (2, 48, 48, 128)]
 K1_BATCHES = (1, 192, 193)
 FORWARD = ("bodymask_labels", "avg_pool2", "bilinear_up2")
@@ -170,7 +177,8 @@ SPACE_BF16_AGREEMENT = 0.9999  # banded bf16 argmax against unbanded bf16
 SPACE_VOXEL_SHARE = 1e-5  # bf16 masks: differing voxels, of the volume's
 SPACE_LOSS_RTOL = 1e-3  # fit(mesh=1x2) bf16 losses against the unsharded fit's
 SPACE_GRAD_RTOL = 1e-3  # one f32 step: each leaf, of its largest gradient
-REPS = 20  # back-to-back launches per CUDA-event pair
+REPS = 20  # back-to-back launches per CUDA-event pair and per profiler group
+HOST_CALLS = 200  # wrapper calls per reading of the host's cost
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 UNET_LOGIT_ATOL, UNET_LOGIT_RTOL = 1e-3, 1e-4  # GPU f32 (TF32 off) vs CPU f32
@@ -231,6 +239,76 @@ def _in_turns(torch, fns: dict, runs: int = 5) -> dict:
         for k in order:
             times[k] += _times_ms(torch, fns[k], runs)
     return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def _device_ms(torch, groups: list, reps: int = REPS) -> list:
+    """The card's own ms per launch of each ``(symbol, fn)`` of ``groups``:
+    one ``torch.profiler`` window over ``reps`` back-to-back calls of each
+    fn in turn (after a warm-up call), the groups parted on the card's
+    timeline by a one-element ``fill_`` before each and after the last; the
+    mean duration of the CUDA kernels between a group's two fills (the
+    window's last ones) whose name holds ``symbol``. None, with a line
+    saying so, where there are not ``reps`` of them."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _, fn in groups:
+        fn()
+    marker = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # A window that follows another in this process can miss its first
+        # few kernels: let some fills and a moment go by first.
+        for _ in range(32):
+            marker.fill_(0.0)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _, fn in groups:
+            marker.fill_(1.0)
+            for _ in range(reps):
+                fn()
+        marker.fill_(1.0)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if e.device_type == cuda)
+    fills = [start for start, _, name in kernels if "FillFunctor" in name][-len(groups) - 1:]
+    out = []
+    for i, (symbol, _) in enumerate(groups):
+        pattern = re.compile(re.escape(symbol) + r"[<I(]")
+        lo, hi = (fills[i], fills[i + 1]) if len(fills) == len(groups) + 1 else (0.0, -1.0)
+        spans = [end - start for start, end, name in kernels
+                 if lo < start < hi and pattern.search(name)]
+        if len(spans) != reps:
+            print(f"_device_ms: {len(spans)} {symbol} kernels in group {i} of {len(groups)}, "
+                  f"expected {reps} ({len(kernels)} kernels, {len(fills)} fills in the window)")
+        out.append(sum(spans) / reps / 1e3 if len(spans) == reps else None)
+    return out
+
+
+def _host_us(torch, fn, calls: int = HOST_CALLS) -> float:
+    """The host's µs per call of ``fn``: the wall time to make ``calls``
+    calls, synchronised before and after (the launch queue holds them all,
+    so the device's pace does not hold the host back)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return enqueued / calls * 1e6
+
+
+def _readings(ms: float, device, host: float, summed: bool = False) -> str:
+    """A kernel's three times: back to back, the card's own, the host's (per
+    launch, or ``summed`` over shapes)."""
+    dev = "not measured" if device is None else f"{device:.4f} ms"
+    per = ("summed", "summed") if summed else ("per launch", "per call")
+    return (f"back to back {ms:.4f} ms | device {dev} {per[0]} | host {host:.1f} µs {per[1]}"
+            + (" (above the device: the host sets the pace)"
+               if device is not None and host / 1e3 > device else ""))
 
 
 def _ptxas_lines(report: str) -> list:
@@ -549,9 +627,7 @@ class Smoke:
         cases += [("bilinear_up2", s) for s in TILE_SHAPES + VOLUME96_SHAPES]
         cases += [("avg_pool2", s) for s in pool96]
         errs = {name: 0.0 for name in ops}
-        sums = {name: {per: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
-                       for per in TIMED} for name in ops}
-        bound_by = {name: set() for name in ops}
+        timed = []
         for name, shape in cases:
             kern, plain, lib_name, lib, ops_per_out = ops[name]
             for dtype in (torch.bfloat16, torch.float32):
@@ -572,35 +648,63 @@ class Smoke:
                                         "library": lambda: lib(x)})
                 bound_ms, by = _bound((x.numel() + got.numel()) * x.element_size(),
                                       got.numel() * ops_per_out)
-                bound_by[name].add(by)
-                for k in med:
-                    sums[name][per[0]][k] += med[k]
-                sums[name][per[0]]["bound"] += bound_ms
-                slower = [k for k in ("plain", "library") if med["kernel"] > med[k]]
-                note = (f" | SLOWER than {' and '.join(slower)}; the kernel stays"
-                        if slower else "")
-                print(f"[stencil] {name} {shape} {dt}: max_abs_err {err} bit-equal {same} | "
-                      f"kernel {med['kernel']:.4f} ms | bound {bound_ms:.4f} ms ({by}), "
-                      f"share {bound_ms / med['kernel']:.1%} | plain {med['plain']:.4f} ms | "
-                      f"{lib_name} {med['library']:.4f} ms{note}")
-        for name in ops:
+                timed.append((name, shape, per[0], lambda kern=kern, x=x: kern(x), med, bound_ms,
+                              by))
+        self.state["stencil"] = self._timed_lines(
+            "stencil", timed, {name: op[2] for name, op in ops.items()}, errs)
+
+    def _timed_lines(self, tag, timed, libs, errs):
+        """Print each timed bf16 shape's three readings — back to back, the
+        card's own ms per launch (one profiler window over every shape, the
+        kernels named ``<name>_kernel``), the host's µs per call — beside
+        its bound, plain and library (``libs[name]``) times, then their sums
+        per 32-slice chunk and per train step. ``timed`` holds (name, shape,
+        "chunk" or "step", one call of the wrapper, in-turns medians, bound
+        ms, bound by). Returns each kernel's entry of the kernels line, per
+        chunk (K2, K3) or per step (K2ᵀ, K3ᵀ)."""
+        torch = self.torch
+        device = _device_ms(torch, [(f"{name}_kernel", fn) for name, _, _, fn, *_ in timed])
+        host = [_host_us(torch, fn) for _, _, _, fn, *_ in timed]
+        sums = {name: {per: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0,
+                             "device": 0.0, "host": 0.0} for per in TIMED} for name in libs}
+        bound_by = {name: set() for name in libs}
+        for (name, shape, per, _, med, bound_ms, by), dev_ms, host_us in zip(timed, device, host):
+            bound_by[name].add(by)
+            t = sums[name][per]
+            for k in med:
+                t[k] += med[k]
+            t["bound"] += bound_ms
+            t["device"] = None if dev_ms is None or t["device"] is None else t["device"] + dev_ms
+            t["host"] += host_us
+            slower = [k for k in ("plain", "library") if med["kernel"] > med[k]]
+            note = f" | SLOWER than {' and '.join(slower)}; the kernel stays" if slower else ""
+            share = "" if dev_ms is None else f", of the device time {bound_ms / dev_ms:.1%}"
+            print(f"[{tag}] {name} {shape} bfloat16: bit-equal True | "
+                  f"{_readings(med['kernel'], dev_ms, host_us)} | bound {bound_ms:.4f} ms ({by}), "
+                  f"share {bound_ms / med['kernel']:.1%}{share} | plain {med['plain']:.4f} ms | "
+                  f"{libs[name]} {med['library']:.4f} ms{note}")
+        for name in libs:
             for per, what in (("chunk", "32-slice bf16 chunk"),
                               ("step", f"bf16 train step of batch {TRAIN_BATCH}")):
                 t = sums[name][per]
-                print(f"[stencil] {name} per {what} (sum of the U-Net's 4 shapes): "
-                      f"kernel {t['kernel']:.4f} ms | bound {t['bound']:.4f} ms "
-                      f"({'+'.join(sorted(bound_by[name]))}), share "
-                      f"{t['bound'] / t['kernel']:.1%} | plain {t['plain']:.4f} ms | "
-                      f"{ops[name][2]} {t['library']:.4f} ms (medians of 10 CUDA-event runs of "
-                      f"{REPS} launches each, in turns)")
-        self.state["stencil"] = {  # per inference chunk, the path that launches K2/K3 most
-            name: {"max_abs_err": errs[name], "ms": sums[name]["chunk"]["kernel"],
-                   "plain_ms": sums[name]["chunk"]["plain"],
-                   "bound_ms": sums[name]["chunk"]["bound"],
-                   "bound_by": "+".join(sorted(bound_by[name])),
-                   "library_ms": sums[name]["chunk"]["library"]}
-            for name in ops
-        }
+                share = ("" if t["device"] is None
+                         else f", of the device time {t['bound'] / t['device']:.1%}")
+                print(f"[{tag}] {name} per {what} (sum of the U-Net's 4 shapes): "
+                      f"{_readings(t['kernel'], t['device'], t['host'], True)} | bound "
+                      f"{t['bound']:.4f} ms ({'+'.join(sorted(bound_by[name]))}), share "
+                      f"{t['bound'] / t['kernel']:.1%}{share} | plain {t['plain']:.4f} ms | "
+                      f"{libs[name]} {t['library']:.4f} ms (back to back: medians of 10 "
+                      f"CUDA-event runs of {REPS} launches each, in turns; device: "
+                      f"torch.profiler over {REPS} launches; host: {HOST_CALLS} calls; "
+                      f"{self.state['smi']})")
+        main = {"avg_pool2": "chunk", "bilinear_up2": "chunk"}  # else per train step
+        out = {}
+        for name in libs:
+            t = sums[name][main.get(name, "step")]
+            out[name] = {"max_abs_err": errs[name], "ms": t["kernel"], "plain_ms": t["plain"],
+                         "bound_ms": t["bound"], "bound_by": "+".join(sorted(bound_by[name])),
+                         "library_ms": t["library"]}
+        return out
 
     def fused(self):
         import numpy as np
@@ -1158,10 +1262,11 @@ class Smoke:
 
     def _adjoints(self):
         """K2ᵀ and K3ᵀ bit-equal to their plain adjoints at the U-Net's shapes
-        in a train step (batch 8) and in an inference chunk (32), bf16 and
-        f32, and at the odd and tile-straddling shapes; the bf16 times per
-        train step and per chunk beside the bound, the plain adjoint and
-        torch's own backward op."""
+        in a train step (batch 8), an inference chunk (32) and a data-2
+        shard's step (4), bf16 and f32, and at the odd, tile-straddling and
+        padded band shapes; the bf16 times per train step and per chunk —
+        back to back, the card's own per launch, the host's per call —
+        beside the bound, the plain adjoint and torch's own backward op."""
         torch = self.torch
         from lungmask_tpu_torch.ops.kernels import stencil as st
 
@@ -1201,10 +1306,14 @@ class Smoke:
         cases = [("avg_pool2_bwd", s) for s in POOL_SHAPES + TRAIN_POOL_SHAPES]
         cases += [("bilinear_up2_bwd", s) for s in UP_SHAPES + TRAIN_UP_SHAPES]
         cases += [(name, s) for s in ODD_SHAPES for name in ops]
-        cases += [("bilinear_up2_bwd", s) for s in TILE_SHAPES]
+        cases += [("bilinear_up2_bwd", s) for s in TILE_SHAPES + ADJOINT_TILE_SHAPES]
+        cases += [("bilinear_up2_bwd", (TRAIN_BATCH, h // 2 + pad, w, c))  # padded bands
+                  for _, h, w, c in UP_SHAPES for pad in (1, 2)]
+        half = TRAIN_BATCH // 2  # a shard's batch in the data-2 mesh's train step
+        cases += [("avg_pool2_bwd", (half,) + s[1:]) for s in POOL_SHAPES]
+        cases += [("bilinear_up2_bwd", (half,) + s[1:]) for s in UP_SHAPES]
         errs = {name: 0.0 for name in ops}
-        sums = {name: {per: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
-                       for per in TIMED} for name in ops}
+        timed = []
         for name, shape in cases:
             out_shape, kern, plain, lib, ops_per_dx = ops[name]
             for dtype in (torch.bfloat16, torch.float32):
@@ -1223,36 +1332,19 @@ class Smoke:
                     continue
                 lib_err = float((lib(g, shape).permute(0, 2, 3, 1).float()
                                  - want.float()).abs().max())
+                print(f"[train] {name} {shape} bfloat16: library backward's max |diff| to the "
+                      f"plain adjoint {lib_err:.3e}")
                 med = _in_turns(torch, {"kernel": lambda: kern(g, shape),
                                         "plain": lambda: plain(g, shape),
                                         "library": lambda: lib(g, shape)})
                 bound_ms, by = _bound((g.numel() + got.numel()) * g.element_size(),
                                       got.numel() * ops_per_dx)
-                for k in med:
-                    sums[name][per[0]][k] += med[k]
-                sums[name][per[0]]["bound"] += bound_ms
-                slower = [k for k in ("plain", "library") if med["kernel"] > med[k]]
-                note = f" | SLOWER than {' and '.join(slower)}; the kernel stays" if slower else ""
-                print(f"[train] {name} {shape} {dt}: bit-equal {same} | kernel "
-                      f"{med['kernel']:.4f} ms | bound {bound_ms:.4f} ms ({by}), share "
-                      f"{bound_ms / med['kernel']:.1%} | plain {med['plain']:.4f} ms | library "
-                      f"backward {med['library']:.4f} ms (max |diff| to plain {lib_err:.3e}){note}")
-        for name in ops:
-            for per, what in (("chunk", "32-slice bf16 chunk"),
-                              ("step", f"bf16 train step of batch {TRAIN_BATCH}")):
-                t = sums[name][per]
-                print(f"[train] {name} per {what} (the U-Net's 4 shapes): kernel "
-                      f"{t['kernel']:.4f} ms | bound {t['bound']:.4f} ms (bytes), share "
-                      f"{t['bound'] / t['kernel']:.1%} | plain {t['plain']:.4f} ms | library "
-                      f"backward {t['library']:.4f} ms (medians of 10 CUDA-event runs of {REPS} "
-                      f"launches each, in turns; {self.state['smi']})")
-        self.state["adjoints"] = {  # per train step, the one path that launches them
-            name: {"max_abs_err": errs[name], "ms": sums[name]["step"]["kernel"],
-                   "plain_ms": sums[name]["step"]["plain"],
-                   "bound_ms": sums[name]["step"]["bound"],
-                   "bound_by": "bytes", "library_ms": sums[name]["step"]["library"]}
-            for name in ops
-        }
+                timed.append((name, shape, per[0], lambda kern=kern, g=g, shape=shape:
+                              kern(g, shape), med, bound_ms, by))
+        # Per train step, the one path that launches them.
+        self.state["adjoints"] = self._timed_lines(
+            "train", timed, {"avg_pool2_bwd": "aten.avg_pool2d_backward",
+                             "bilinear_up2_bwd": "aten.upsample_bilinear2d_backward"}, errs)
 
     def train(self):
         import numpy as np
@@ -1436,6 +1528,15 @@ class Smoke:
                      key=lambda e: -e.self_device_time_total)
         top = "; ".join(f"{e.key} {e.self_device_time_total / 1e3 / steps:.3f} ms x"
                         f"{e.count // steps}" for e in ops[:8])
+
+        def copies(e):  # aten::copy_ under e: a gradient made contiguous before the kernel
+            return sum((c.name == "aten::copy_") + copies(c) for c in e.cpu_children)
+
+        for node in ("_AvgPool2Backward", "_BilinearUp2Backward"):
+            nodes = [e for e in prof.events()
+                     if e.device_type == cpu and e.name.endswith(f"evaluate_function: {node}")]
+            print(f"[train] profile: {len(nodes)} {node} nodes in {steps} steps, "
+                  f"{sum(copies(e) for e in nodes)} aten::copy_ inside them")
         print(f"[train] profile of {steps} steps: wall {wall / steps:.3f} ms per step (profiler "
               f"on), device busy {busy / steps:.3f} ms per step, idle share {1 - busy / wall:.1%}, "
               f"{len(kernels) // steps} kernels per step | operators by their kernels' time per "

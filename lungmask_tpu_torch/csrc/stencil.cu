@@ -45,7 +45,7 @@
 // (ops/kernels/stencil.py::up2_plan) is chosen per shape so that the
 // U-Net's smallest upsample (32 x 16 x 16 x 1024) still gives several
 // blocks per SM; shared memory above 48 KB is asked for with
-// cudaFuncSetAttribute. Ragged H, W and slabs are clamped on load and
+// cudaFuncSetAttribute, once per device. Ragged H, W and slabs are clamped on load and
 // masked on store; the scalar path (V = 1) copies with plain loads.
 //
 // K2T and K3T, their adjoints, for the U-Net's backward. They replace XLA's
@@ -55,21 +55,48 @@
 // per 32-slice bf16 chunk at the U-Net's shapes, at 3.35 TB/s).
 //   K2T lm_avg_pool2_bwd: dx[2i+a, 2j+b] = 0.25 * g[i, j], exact in float32
 //      and rounded once to the dtype; the last row or column an odd H or W
-//      dropped gets 0. A grid-stride loop with one thread per 16-byte
-//      vector of dx channels, as K2's forward.
+//      dropped gets 0.
 //   K3T lm_bilinear_up2_bwd, in gather form (no atomics): per axis
 //      dx[i] = (0.25*g[2i-1] + 0.75*g[2i]) + (0.75*g[2i+1] + 0.25*g[2i+2])
 //      with the tap indices clamped to [0, 2n): the clamp is the forward's
 //      edge rule transposed (dx[0] also takes 0.25*g[0], dx[n-1] also
 //      0.25*g[2n-1]). The row pass first, kept in float32, then the column
 //      pass, one rounding; __fmul_rn / __fadd_rn in the plain version's
-//      order, so it is bit-equal to bilinear_up2_bwd_reference. A simple
-//      design: one thread per output vector reads its 4 x 4 input vectors
-//      (neighbouring threads share them through L1/L2); staging tiles as
-//      K3's forward does is left for later.
+//      order, so it is bit-equal to bilinear_up2_bwd_reference.
+// Their first designs ran one thread per 16-byte dx vector with an int64
+// division chain per thread. K2T read each g vector from 4 threads; K3T
+// made 16 sixteen-byte loads per output (each g vector fetched by 4
+// threads through L1/L2), redid the row pass at all 4 columns of every
+// output (twice the float work) and took 70 registers in bf16; both sat at
+// 52-72% of the bound at batch 32. Now:
+//   K2T: one thread per quad of dx over one channel vector — one 16-byte
+//      load of g, x0.25, the quad's (up to) four 16-byte stores; blocks over
+//      (image, quad row, chunk), so one division chain per block and one
+//      int32 division per thread. 24 registers (bf16), 22 (f32), no shared
+//      memory.
+//   K3T: the mirror of K3's tile. A block stages the clamped
+//      (2 rows + 2) x (2 tile_w + 2) g window of its dx tile with 16-byte
+//      cp.async (not TMA: its out-of-bounds fill is zero, not the clamp),
+//      each thread walks one dx row along the tile's columns computing the
+//      row pass once per staged column, two new ones per dx vector; one
+//      division chain per block, int32 in the tile, int64 for pixel
+//      offsets. The plan (ops/kernels/stencil.py::up2_bwd_plan) takes 16
+//      dx rows x 4 columns of an 8-vector slab: 42.5 KB of shared memory
+//      and 128 threads a block, five blocks per SM, a warp's stores four
+//      runs of 128 contiguous bytes. Timed on the H100 against 32-vector
+//      slabs of 8 x 4 (90 KB, two blocks of 256 threads per SM), 4 x 4 and
+//      8 x 2, and 16-vector slabs, it was the fastest at every U-Net
+//      shape: narrower slabs give more blocks in flight while tiles load,
+//      and taller tiles less halo. 55 registers (bf16), 40 (f32), no
+//      spills.
+// Ragged tiles and slabs are clamped on load and masked on store; the
+// scalar path (V = 1: C not a whole number of vectors, or an unaligned
+// base) copies with plain loads.
 //
 // C interface for ctypes; each launcher returns cudaGetLastError().
 
+#include <atomic>
+#include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,13 +108,17 @@ namespace {
 // torch reads it, so a launch on a tensor of another card must not move it.
 struct DeviceGuard {
   int prev = -1;
+  bool moved = false;
   cudaError_t err;
   explicit DeviceGuard(int device) {
     err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+    if (err == cudaSuccess && prev != device) {
+      err = cudaSetDevice(device);
+      moved = err == cudaSuccess;
+    }
   }
   ~DeviceGuard() {
-    if (prev >= 0) cudaSetDevice(prev);
+    if (moved) cudaSetDevice(prev);
   }
 };
 
@@ -257,30 +288,41 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// K2T: one thread per quad of dx, (2i .. 2i+1, 2j .. 2j+1) over one
+// vector of channels. Block (image b, quad row i, chunk) and thread
+// (quad column j, channel vector v) of that row: one division chain per
+// block, one int32 division per thread, int64 for pixel offsets. A thread
+// loads its g vector once (g[i, j] when the quad is a whole window, else
+// 0: the row or column an odd H or W dropped), scales it by 0.25 in
+// float32 and writes the quad's pixels that exist. Consecutive threads
+// hold consecutive channel vectors, so a warp's 16-byte accesses cover
+// 512 contiguous bytes when C has 32 vectors or more.
 template <typename T, int V>
-__global__ void avg_pool2_bwd_kernel(const T* __restrict__ g, T* __restrict__ dx, int64_t n,
-                                     int64_t h, int64_t w, int64_t c) {
-  const int64_t ho = h / 2, wo = w / 2, cv = c / V;
-  const int64_t total = n * h * w * cv;
-  for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    int64_t r = t / cv;  // input pixel (b, i, j) in raster order
-    const int64_t ch = (t - r * cv) * V;
-    const int64_t j = r % w;
-    r /= w;
-    const int64_t i = r % h;
-    const int64_t b = r / h;
-    float q[V];
-    if (i < 2 * ho && j < 2 * wo) {
-      load_f32<T, V>(g + ((b * ho + i / 2) * wo + j / 2) * c + ch, q);
+__global__ void __launch_bounds__(256)
+    avg_pool2_bwd_kernel(const T* __restrict__ g, T* __restrict__ dx, int h, int w, int c,
+                         int quad_rows, int chunks) {
+  const int chunk = blockIdx.x % chunks, r = blockIdx.x / chunks;
+  const int b = r / quad_rows, i = r - b * quad_rows;
+  const int cv = c / V, t = chunk * blockDim.x + threadIdx.x;
+  if (t >= ((w + 1) / 2) * cv) return;
+  const int j = t / cv, ch = (t - j * cv) * V;
+  const int ho = h / 2, wo = w / 2;
+  float q[V];
+  if (i < ho && j < wo) {
+    load_f32<T, V>(g + (((int64_t)b * ho + i) * wo + j) * c + ch, q);
 #pragma unroll
-      for (int k = 0; k < V; ++k) q[k] = __fmul_rn(q[k], 0.25f);
-    } else {
+    for (int k = 0; k < V; ++k) q[k] = __fmul_rn(q[k], 0.25f);
+  } else {
 #pragma unroll
-      for (int k = 0; k < V; ++k) q[k] = 0.0f;
-    }
-    store_f32<T, V>(dx + t * V, q);  // dx is (n, h, w, c): element t * V
+    for (int k = 0; k < V; ++k) q[k] = 0.0f;
   }
+  const int64_t row = (int64_t)w * c;
+  T* o = dx + ((int64_t)b * h + 2 * i) * row + (int64_t)(2 * j) * c + ch;
+  const bool right = 2 * j + 1 < w, down = 2 * i + 1 < h;
+  store_f32<T, V>(o, q);
+  if (right) store_f32<T, V>(o + c, q);
+  if (down) store_f32<T, V>(o + row, q);
+  if (down && right) store_f32<T, V>(o + row + c, q);
 }
 
 // (0.25*a + 0.75*b) + (0.75*c + 0.25*d): the adjoint's four taps, rounded
@@ -289,42 +331,87 @@ __device__ __forceinline__ float adjoint_taps(float a, float b, float c, float d
   return __fadd_rn(quarter_lerp(a, b), quarter_lerp(d, c));
 }
 
+// The row (H) pass of K3T at one staged column: the four staged rows from
+// `p` on, `rs` elements apart.
 template <typename T, int V>
-__global__ void bilinear_up2_bwd_kernel(const T* __restrict__ g, T* __restrict__ dx, int64_t n,
-                                        int64_t h, int64_t w, int64_t c) {
-  const int64_t cv = c / V, gw = 2 * w;
-  const int64_t total = n * h * w * cv;
-  for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    int64_t r = t / cv;  // input pixel (b, i, j) in raster order
-    const int64_t ch = (t - r * cv) * V;
-    const int64_t j = r % w;
-    r /= w;
-    const int64_t i = r % h;
-    const int64_t b = r / h;
-    int64_t rows[4], cols[4];  // the clamped taps 2i-1 .. 2i+2 of each axis
+__device__ __forceinline__ void row_pass(const T* p, int rs, float (&out)[V]) {
+  float a[V], b[V], c[V], d[V];
+  load_f32<T, V>(p, a);
+  load_f32<T, V>(p + rs, b);
+  load_f32<T, V>(p + 2 * rs, c);
+  load_f32<T, V>(p + 3 * rs, d);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int64_t ri = 2 * i - 1 + k, cj = 2 * j - 1 + k;
-      rows[k] = ri < 0 ? 0 : (ri > 2 * h - 1 ? 2 * h - 1 : ri);
-      cols[k] = cj < 0 ? 0 : (cj > gw - 1 ? gw - 1 : cj);
+  for (int k = 0; k < V; ++k) out[k] = adjoint_taps(a[k], b[k], c[k], d[k]);
+}
+
+// K3T on one tile: image b, dx rows [i0, i0 + rows), columns
+// [j0, j0 + tile_w), channel vectors [slab * cvt, (slab + 1) * cvt). The
+// block stages the clamped g window of its slab — rows 2*i0 - 1 ..
+// 2*(i0 + rows), columns 2*j0 - 1 .. 2*(j0 + tile_w), a
+// (2*rows + 2) x (2*tile_w + 2) tile — in shared memory (clamping the
+// index is the edge rule). Thread (v, slot) owns channel vector v; its
+// slots take dx rows r < rows. For each it walks the tile's columns once:
+// dx column j0 + jj reads staged columns 2*jj .. 2*jj + 3, so the row pass
+// of the two new ones, kept with the two before them in registers, gives
+// the column pass of one dx vector, and each row-pass value is computed
+// once. Consecutive threads hold consecutive channel vectors, so a warp's
+// stores cover 32 x 16 contiguous bytes.
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+    bilinear_up2_bwd_kernel(const T* __restrict__ g, T* __restrict__ dx, int h, int w, int c,
+                            int rows, int tile_w, int cvt, int tiles_h, int tiles_w, int slabs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);
+  int t = blockIdx.x;  // the one division chain, per block
+  const int slab = t % slabs;
+  t /= slabs;
+  const int tj = t % tiles_w;
+  t /= tiles_w;
+  const int ti = t % tiles_h;
+  const int b = t / tiles_h;
+  const int i0 = ti * rows, j0 = tj * tile_w;
+  const int v = threadIdx.x % cvt, slot = threadIdx.x / cvt, slots = blockDim.x / cvt;
+  const int ch = (slab * cvt + v) * V;
+  const bool live = ch < c;  // the last slab may be short
+  const int gh = 2 * h, gw = 2 * w;
+  const int sw = 2 * tile_w + 2, staged = (2 * rows + 2) * sw;
+  const int64_t gimg = (int64_t)b * gh * gw;  // first pixel of g's image b
+  if (live) {
+    for (int p = slot; p < staged; p += slots) {
+      const int rr = p / sw, cc = p - rr * sw;
+      const int si = min(max(2 * i0 - 1 + rr, 0), gh - 1);
+      const int sj = min(max(2 * j0 - 1 + cc, 0), gw - 1);
+      stage<T, V>(tile + (p * cvt + v) * V, g + (gimg + (int64_t)si * gw + sj) * c + ch);
     }
-    const T* img = g + b * (2 * h) * gw * c + ch;
-    float col[4][V];  // the row pass at each of the four columns
+  }
+  if constexpr (V * sizeof(T) == 16) asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  if (!live) return;
+  const int cols = min(tile_w, w - j0);
+  const int col = cvt * V;  // elements per staged pixel
+  const int rs = sw * col;  // elements per staged row
+  for (int r = slot; r < rows; r += slots) {
+    const int i = i0 + r;
+    if (i >= h) break;
+    // Staged row 2r is g row 2i - 1, the first of dx row i's four taps.
+    const T* top = tile + 2 * r * rs + v * V;
+    float c0[V], c1[V];
+    row_pass<T, V>(top, rs, c0);
+    row_pass<T, V>(top + col, rs, c1);
+    T* o = dx + (((int64_t)b * h + i) * w + j0) * c + ch;
+    for (int jj = 0; jj < cols; ++jj) {
+      float c2[V], c3[V], out[V];
+      row_pass<T, V>(top + (2 * jj + 2) * col, rs, c2);
+      row_pass<T, V>(top + (2 * jj + 3) * col, rs, c3);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float a[V], bb[V], cc[V], d[V];
-      load_f32<T, V>(img + (rows[0] * gw + cols[q]) * c, a);
-      load_f32<T, V>(img + (rows[1] * gw + cols[q]) * c, bb);
-      load_f32<T, V>(img + (rows[2] * gw + cols[q]) * c, cc);
-      load_f32<T, V>(img + (rows[3] * gw + cols[q]) * c, d);
-#pragma unroll
-      for (int k = 0; k < V; ++k) col[q][k] = adjoint_taps(a[k], bb[k], cc[k], d[k]);
+      for (int k = 0; k < V; ++k) {
+        out[k] = adjoint_taps(c0[k], c1[k], c2[k], c3[k]);
+        c0[k] = c2[k];
+        c1[k] = c3[k];
+      }
+      store_f32<T, V>(o, out);
+      o += c;
     }
-    float out[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) out[k] = adjoint_taps(col[0][k], col[1][k], col[2][k], col[3][k]);
-    store_f32<T, V>(dx + t * V, out);  // dx is (n, h, w, c): element t * V
   }
 }
 
@@ -354,62 +441,87 @@ int pool(const void* x, void* y, int64_t n, int64_t h, int64_t w, int64_t c, cud
   return (int)cudaGetLastError();
 }
 
-// An adjoint from g into dx (n, h, w, c): the vector path when C and both
-// bases allow it.
-template <typename T>
-using AdjointKernel = void (*)(const T*, T*, int64_t, int64_t, int64_t, int64_t);
-
-template <typename T>
-int adjoint(const void* g, void* dx, int64_t n, int64_t h, int64_t w, int64_t c, cudaStream_t s,
-            AdjointKernel<T> vec, AdjointKernel<T> scalar) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int64_t pixels = n * h * w;
-  const T* in = static_cast<const T*>(g);
-  T* out = static_cast<T*>(dx);
-  if (vectorizable<T>(g, dx, c)) {
-    vec<<<blocks_for(pixels * (c / VEC)), THREADS, 0, s>>>(in, out, n, h, w, c);
-  } else {
-    scalar<<<blocks_for(pixels * c), THREADS, 0, s>>>(in, out, n, h, w, c);
-  }
+// K2T from g into dx (n, h, w, c).
+template <typename T, int V>
+int pool_bwd_launch(const T* g, T* dx, int64_t n, int64_t h, int64_t w, int64_t c,
+                    cudaStream_t s) {
+  const int64_t quad_rows = (h + 1) / 2, quad_vectors = (w + 1) / 2 * (c / V);
+  const int64_t threads = quad_vectors < THREADS ? (quad_vectors + 31) / 32 * 32 : THREADS;
+  const int64_t chunks = (quad_vectors + threads - 1) / threads;
+  const int64_t blocks = n * quad_rows * chunks;
+  if (blocks > INT_MAX || quad_vectors > INT_MAX || h > INT_MAX || w > INT_MAX || c > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  avg_pool2_bwd_kernel<T, V><<<(unsigned)blocks, (unsigned)threads, 0, s>>>(
+      g, dx, (int)h, (int)w, (int)c, (int)quad_rows, (int)chunks);
   return (int)cudaGetLastError();
 }
 
-// The tile plan comes from the caller (ops/kernels/stencil.py::up2_plan):
-// vec channels per access (16 / sizeof(T), or 1 for the scalar path),
-// `rows` input rows and `tile_w` input columns per tile, `cvt` channel
-// vectors per slab, `threads` a multiple of cvt up to 256.
-template <typename T, int V>
-int up2_launch(const T* in, T* out, int64_t n, int64_t h, int64_t w, int64_t c, int rows,
-               int tile_w, int cvt, int threads, cudaStream_t s) {
+template <typename T>
+int pool_bwd(const void* g, void* dx, int64_t n, int64_t h, int64_t w, int64_t c,
+             cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  const T* in = static_cast<const T*>(g);
+  T* out = static_cast<T*>(dx);
+  if (vectorizable<T>(g, dx, c)) return pool_bwd_launch<T, VEC>(in, out, n, h, w, c, s);
+  return pool_bwd_launch<T, 1>(in, out, n, h, w, c, s);
+}
+
+// Lets `kernel` take up to MAX_SMEM bytes of dynamic shared memory on the
+// current device: once per device (a bit of `devices` each), not on every
+// launch.
+template <typename Kernel>
+cudaError_t allow_big_tiles(Kernel kernel, std::atomic<uint64_t>& devices) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+  if (devices.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
+  if (err == cudaSuccess) devices.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+// K3 (BWD false) or K3T (BWD true) on a tile plan from the caller
+// (ops/kernels/stencil.py::up2_plan, up2_bwd_plan): `rows` and `tile_w`
+// rows and columns of the smaller image (K3's input x, K3T's output dx,
+// (n, h, w, c)) per tile, `cvt` vectors of V channels per slab, `threads`
+// a multiple of cvt up to 256. K3 stages (rows + 2) x (tile_w + 2) pixels
+// of x per block, K3T (2 rows + 2) x (2 tile_w + 2) pixels of g.
+template <typename T, int V, bool BWD>
+int tile_launch(const T* in, T* out, int64_t n, int64_t h, int64_t w, int64_t c, int rows,
+                int tile_w, int cvt, int threads, cudaStream_t s) {
   const int64_t tiles_h = (h + rows - 1) / rows, tiles_w = (w + tile_w - 1) / tile_w;
   const int64_t slabs = ((c + V - 1) / V + cvt - 1) / cvt;
   const int64_t blocks = n * tiles_h * tiles_w * slabs;
-  const int64_t smem = (int64_t)(rows + 2) * (tile_w + 2) * cvt * V * (int64_t)sizeof(T);
-  if (blocks > 0x7fffffff || smem > MAX_SMEM || h > 0x7fffffff || w > 0x7fffffff ||
-      c > 0x7fffffff)
+  const int64_t staged = BWD ? (2 * (int64_t)rows + 2) * (2 * (int64_t)tile_w + 2)
+                             : ((int64_t)rows + 2) * (tile_w + 2);
+  const int64_t smem = staged * cvt * V * (int64_t)sizeof(T);
+  if (blocks > INT_MAX || smem > MAX_SMEM || 2 * h > INT_MAX || 2 * w > INT_MAX || c > INT_MAX)
     return (int)cudaErrorInvalidValue;
+  const auto kernel = BWD ? bilinear_up2_bwd_kernel<T, V> : bilinear_up2_kernel<T, V>;
+  static std::atomic<uint64_t> big_tiles{0};  // devices that let this kernel pass 48 KB
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bilinear_up2_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = allow_big_tiles(kernel, big_tiles);
     if (err != cudaSuccess) return (int)err;
   }
-  bilinear_up2_kernel<T, V><<<(unsigned)blocks, threads, (size_t)smem, s>>>(
-      in, out, (int)h, (int)w, (int)c, rows, tile_w, cvt, (int)tiles_h, (int)tiles_w,
-      (int)slabs);
+  kernel<<<(unsigned)blocks, threads, (size_t)smem, s>>>(in, out, (int)h, (int)w, (int)c, rows,
+                                                         tile_w, cvt, (int)tiles_h, (int)tiles_w,
+                                                         (int)slabs);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int up2(const void* x, void* y, int64_t n, int64_t h, int64_t w, int64_t c, int vec, int rows,
-        int tile_w, int cvt, int threads, cudaStream_t s) {
+template <typename T, bool BWD>
+int tiled(const void* x, void* y, int64_t n, int64_t h, int64_t w, int64_t c, int vec, int rows,
+          int tile_w, int cvt, int threads, cudaStream_t s) {
   constexpr int VEC = 16 / sizeof(T);
   if (rows < 1 || tile_w < 1 || cvt < 1 || threads < cvt || threads > 256 || threads % cvt)
     return (int)cudaErrorInvalidValue;
   const T* in = static_cast<const T*>(x);
   T* out = static_cast<T*>(y);
   if (vec == VEC && vectorizable<T>(x, y, c))
-    return up2_launch<T, VEC>(in, out, n, h, w, c, rows, tile_w, cvt, threads, s);
-  if (vec == 1) return up2_launch<T, 1>(in, out, n, h, w, c, rows, tile_w, cvt, threads, s);
+    return tile_launch<T, VEC, BWD>(in, out, n, h, w, c, rows, tile_w, cvt, threads, s);
+  if (vec == 1)
+    return tile_launch<T, 1, BWD>(in, out, n, h, w, c, rows, tile_w, cvt, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -431,7 +543,8 @@ int lm_avg_pool2(const void* x, void* y, int64_t n, int64_t h, int64_t w, int64_
   return (int)cudaErrorInvalidValue;
 }
 
-// x: (n, h, w, c) as above; y: (n, 2h, 2w, c); the tile plan as up2 takes it.
+// x: (n, h, w, c) as above; y: (n, 2h, 2w, c); the tile plan
+// (ops/kernels/stencil.py::up2_plan) as tiled takes it.
 int lm_bilinear_up2(const void* x, void* y, int64_t n, int64_t h, int64_t w, int64_t c,
                     int dtype, int vec, int rows, int tile_w, int cvt, int threads,
                     int device, void* stream) {
@@ -439,9 +552,10 @@ int lm_bilinear_up2(const void* x, void* y, int64_t n, int64_t h, int64_t w, int
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return up2<float>(x, y, n, h, w, c, vec, rows, tile_w, cvt, threads, s);
+  if (dtype == 0)
+    return tiled<float, false>(x, y, n, h, w, c, vec, rows, tile_w, cvt, threads, s);
   if (dtype == 1)
-    return up2<__nv_bfloat16>(x, y, n, h, w, c, vec, rows, tile_w, cvt, threads, s);
+    return tiled<__nv_bfloat16, false>(x, y, n, h, w, c, vec, rows, tile_w, cvt, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -454,29 +568,25 @@ int lm_avg_pool2_bwd(const void* g, void* dx, int64_t n, int64_t h, int64_t w, i
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return adjoint<float>(g, dx, n, h, w, c, s, avg_pool2_bwd_kernel<float, 4>,
-                          avg_pool2_bwd_kernel<float, 1>);
-  if (dtype == 1)
-    return adjoint<__nv_bfloat16>(g, dx, n, h, w, c, s, avg_pool2_bwd_kernel<__nv_bfloat16, 8>,
-                                  avg_pool2_bwd_kernel<__nv_bfloat16, 1>);
+  if (dtype == 0) return pool_bwd<float>(g, dx, n, h, w, c, s);
+  if (dtype == 1) return pool_bwd<__nv_bfloat16>(g, dx, n, h, w, c, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // g: (n, 2h, 2w, c), the gradient of lm_bilinear_up2's output; dx:
-// (n, h, w, c), the gradient of its input.
+// (n, h, w, c), the gradient of its input; the tile plan
+// (ops/kernels/stencil.py::up2_bwd_plan) as tiled takes it.
 int lm_bilinear_up2_bwd(const void* g, void* dx, int64_t n, int64_t h, int64_t w, int64_t c,
-                        int dtype, int device, void* stream) {
+                        int dtype, int vec, int rows, int tile_w, int cvt, int threads,
+                        int device, void* stream) {
   if (n * h * w * c <= 0) return 0;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return adjoint<float>(g, dx, n, h, w, c, s, bilinear_up2_bwd_kernel<float, 4>,
-                          bilinear_up2_bwd_kernel<float, 1>);
+    return tiled<float, true>(g, dx, n, h, w, c, vec, rows, tile_w, cvt, threads, s);
   if (dtype == 1)
-    return adjoint<__nv_bfloat16>(g, dx, n, h, w, c, s, bilinear_up2_bwd_kernel<__nv_bfloat16, 8>,
-                                  bilinear_up2_bwd_kernel<__nv_bfloat16, 1>);
+    return tiled<__nv_bfloat16, true>(g, dx, n, h, w, c, vec, rows, tile_w, cvt, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 

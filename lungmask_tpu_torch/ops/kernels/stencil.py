@@ -1,5 +1,5 @@
-"""K2 and K3, the U-Net's pooling and upsampling: CUDA C++ for Hopper beside
-their plain torch versions.
+"""K2 and K3, the U-Net's pooling and upsampling, and their adjoints K2ᵀ
+and K3ᵀ: CUDA C++ for Hopper beside their plain torch versions.
 
 Replace the TPU kernels of ``lungmask_tpu/ops/pallas/stencil.py``:
 
@@ -12,29 +12,44 @@ Replace the TPU kernels of ``lungmask_tpu/ops/pallas/stencil.py``:
   ``odd = 0.75·cur + 0.25·next``, edge rows clamped) kept in float32, the
   same column pass, one rounding. It computes ``unet._bilinear_up2``.
 
+K2ᵀ and K3ᵀ replace XLA's transposes of those two functions in the U-Net's
+backward (the JAX package has no backward kernel): :func:`avg_pool2_bwd`
+spreads ``0.25·g`` over each window, :func:`bilinear_up2_bwd` gathers the
+four clamped taps per axis, the row pass first.
+
 What bounds them on the H100: bytes — one read of each input element and
 one write of each output element. The U-Net's four pools move 629 MB and
 its four upsamples 1258 MB per 32-slice bf16 chunk at 256² (wf=6), 0.188 ms
-and 0.376 ms at 3.35 TB/s. K2 (``lungmask_tpu_torch/csrc/stencil.cu``)
-gives each thread one output pixel over a 16-byte vector of channels,
-neighbouring threads on neighbouring channels. K3 stages a clamped input
-tile in shared memory and computes each row pass once; its tile plan is
-chosen here (:func:`up2_plan`) and passed to the launcher. Every product
-and sum is rounded as the plain version rounds it (no FMA), so the kernels
-are bit-equal to :func:`avg_pool2_reference` and
-:func:`bilinear_up2_reference` in bf16 and float32.
+and 0.376 ms at 3.35 TB/s; the adjoints move the same. K2
+(``lungmask_tpu_torch/csrc/stencil.cu``) gives each thread one output
+pixel over a 16-byte vector of channels, neighbouring threads on
+neighbouring channels. K3 stages a clamped input tile in shared memory and
+computes each row pass once; K3ᵀ mirrors it, staging the clamped gradient
+window of a dx tile and computing each row-pass value once; their tile
+plans are chosen here (:func:`up2_plan`, :func:`up2_bwd_plan`, cached per
+shape) and passed to the launchers. K2ᵀ gives each thread one g vector,
+read once, and its 2×2 quad of dx. Every product and sum is rounded as the
+plain version rounds it (no FMA), so the kernels are bit-equal to
+:func:`avg_pool2_reference`, :func:`bilinear_up2_reference`,
+:func:`avg_pool2_bwd_reference` and :func:`bilinear_up2_bwd_reference` in
+bf16 and float32.
 
-Build and binding as K1 (``ops/kernels/_nvcc.py``). :func:`avg_pool2` and
-:func:`bilinear_up2` take the plain version only for a tensor on the CPU;
-for a CUDA tensor they launch the kernel or raise. Each counts its launches
-in ``.launches``.
+Build and binding as K1 (``ops/kernels/_nvcc.py``). A launch costs the host
+a ctypes call, an output allocation and the checks; :func:`_launch` takes
+the raw handle of the current stream and one device index, and the C side
+sets the device and the shared-memory limit only when they need it, since
+at the train step's batch of 8 most launches are shorter than that host
+work. Each wrapper takes the plain version only for a tensor on the CPU;
+for a CUDA tensor it launches the kernel or raises. Each counts its
+launches in ``.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import torch
@@ -46,6 +61,8 @@ _LIB: Optional[ctypes.CDLL] = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 UP2_SMEM_BUDGET = 56 * 1024  # K3's tile: up to four blocks per SM
+UP2_BWD_SMEM_BUDGET = 44 * 1024  # K3ᵀ's tile: up to five blocks per SM
+UP2_BWD_THREADS = 128  # K3ᵀ: one thread per dx row and channel vector of a tile
 UP2_MAX_THREADS = 256
 
 
@@ -112,10 +129,12 @@ def bilinear_up2_bwd_reference(g: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class Up2Plan:
-    """K3's tiling of an (N, H, W, C) input: ``rows`` input rows and
-    ``tile_w`` input columns per tile, ``cvt`` vectors of ``vec`` channels
+    """A tiling of K3 (``backward`` false) or K3ᵀ over the smaller image of
+    the pair, (N, H, W, C): K3's input, K3ᵀ's output. ``rows`` rows and
+    ``tile_w`` columns of it per tile, ``cvt`` vectors of ``vec`` channels
     per slab, ``threads`` per block (a multiple of ``cvt``). Each block
-    stages a clamped (rows + 2) × (tile_w + 2) × slab tile."""
+    stages a clamped tile: (rows + 2) × (tile_w + 2) input pixels for K3,
+    (2·rows + 2) × (2·tile_w + 2) gradient pixels for K3ᵀ."""
 
     vec: int
     rows: int
@@ -123,10 +142,19 @@ class Up2Plan:
     cvt: int
     threads: int
     itemsize: int
+    backward: bool = False
+
+    @property
+    def staged(self) -> Tuple[int, int]:
+        """Rows and columns of the staged tile."""
+        if self.backward:
+            return 2 * self.rows + 2, 2 * self.tile_w + 2
+        return self.rows + 2, self.tile_w + 2
 
     @property
     def smem_bytes(self) -> int:
-        return (self.rows + 2) * (self.tile_w + 2) * self.cvt * self.vec * self.itemsize
+        staged_rows, staged_cols = self.staged
+        return staged_rows * staged_cols * self.cvt * self.vec * self.itemsize
 
     def grid(self, shape: Tuple[int, int, int, int]) -> Tuple[int, int, int, int]:
         """(images, row tiles, column tiles, channel slabs): one block each."""
@@ -134,30 +162,65 @@ class Up2Plan:
         vectors = -(-c // self.vec)
         return n, -(-h // self.rows), -(-w // self.tile_w), -(-vectors // self.cvt)
 
+    @property
+    def args(self) -> Tuple[int, int, int, int, int]:
+        """The fields the launcher takes after the dtype."""
+        return self.vec, self.rows, self.tile_w, self.cvt, self.threads
 
-def up2_plan(shape: Tuple[int, int, int, int], itemsize: int, aligned: bool = True) -> Up2Plan:
-    """K3's tile plan for an (N, H, W, C) input of ``itemsize``-byte
-    elements. 16-byte vectors when C is a whole number of them and both
-    bases are 16-byte ``aligned``, else single channels. A slab is up to 32
-    vectors (a warp's 512 contiguous bytes). Rows (at least 8, more for
-    narrow slabs) and columns (up to 16) halve until the staged tile fits
-    ``UP2_SMEM_BUDGET``."""
-    n, h, w, c = shape
+
+def _vectors(c: int, itemsize: int, aligned: bool, slab: int) -> Tuple[int, int]:
+    """(channels per access, vectors per slab): 16-byte vectors when C is a
+    whole number of them and both bases are 16-byte ``aligned``, else
+    single channels; a slab is up to ``slab`` vectors."""
     full = 16 // itemsize
     vec = full if aligned and c % full == 0 else 1
-    cvt = min(-(-c // vec), 32)
-    rows = min(h, max(8, UP2_MAX_THREADS // 2 // cvt))
-    tile_w = min(w, 16)
+    return vec, min(-(-c // vec), slab)
 
-    def size(r, tw):
-        return (r + 2) * (tw + 2) * cvt * vec * itemsize
 
-    while tile_w > 1 and size(rows, tile_w) > UP2_SMEM_BUDGET:
+def _fit(plan: Up2Plan, budget: int) -> Tuple[int, int]:
+    """``plan``'s rows and columns, the columns and then the rows halved
+    until its staged tile fits ``budget`` bytes."""
+    rows, tile_w = plan.rows, plan.tile_w
+    while tile_w > 1 and replace(plan, rows=rows, tile_w=tile_w).smem_bytes > budget:
         tile_w = -(-tile_w // 2)
-    while rows > 1 and size(rows, tile_w) > UP2_SMEM_BUDGET:
+    while rows > 1 and replace(plan, rows=rows, tile_w=tile_w).smem_bytes > budget:
         rows = -(-rows // 2)
+    return rows, tile_w
+
+
+@functools.lru_cache(maxsize=1024)
+def up2_plan(shape: Tuple[int, int, int, int], itemsize: int, aligned: bool = True) -> Up2Plan:
+    """K3's tile plan for an (N, H, W, C) input of ``itemsize``-byte
+    elements. A slab is up to 32 vectors (a warp's 512 contiguous bytes);
+    each thread slot takes output rows, two per input row: rows (at least
+    8, more for narrow slabs) and columns (up to 16) halve until the staged
+    tile fits ``UP2_SMEM_BUDGET``. Cached: a launch looks its plan up."""
+    n, h, w, c = shape
+    vec, cvt = _vectors(c, itemsize, aligned, 32)
+    rows = min(h, max(8, UP2_MAX_THREADS // 2 // cvt))
+    rows, tile_w = _fit(Up2Plan(vec, rows, min(w, 16), cvt, cvt, itemsize), UP2_SMEM_BUDGET)
     threads = cvt * min(2 * rows, max(1, UP2_MAX_THREADS // cvt))
-    return Up2Plan(vec=vec, rows=rows, tile_w=tile_w, cvt=cvt, threads=threads, itemsize=itemsize)
+    return Up2Plan(vec, rows, tile_w, cvt, threads, itemsize)
+
+
+@functools.lru_cache(maxsize=1024)
+def up2_bwd_plan(shape: Tuple[int, int, int, int], itemsize: int,
+                 aligned: bool = True) -> Up2Plan:
+    """K3ᵀ's tile plan for the (N, H, W, C) input gradient it writes, from
+    a (N, 2H, 2W, C) gradient of ``itemsize``-byte elements. A slab is up
+    to 8 vectors (128 contiguous bytes a pixel) and each thread slot takes
+    one dx row of the tile, so a block has up to 128 / cvt rows (16 for a
+    full slab) of 4 columns; columns, then rows, halve until the staged
+    tile fits ``UP2_BWD_SMEM_BUDGET``. Of the tilings timed on the H100
+    (``tools/stencil_turns.py --sweep``), this one was the fastest at every
+    U-Net shape. Cached as :func:`up2_plan`."""
+    n, h, w, c = shape
+    vec, cvt = _vectors(c, itemsize, aligned, 8)
+    rows = min(h, max(1, UP2_BWD_THREADS // cvt))
+    rows, tile_w = _fit(Up2Plan(vec, rows, min(w, 4), cvt, cvt, itemsize, backward=True),
+                        UP2_BWD_SMEM_BUDGET)
+    threads = cvt * min(rows, UP2_BWD_THREADS // cvt)
+    return Up2Plan(vec, rows, tile_w, cvt, threads, itemsize, backward=True)
 
 
 def build() -> ctypes.CDLL:
@@ -170,7 +233,7 @@ def build() -> ctypes.CDLL:
         lib.lm_avg_pool2.argtypes = shape + [ctypes.c_int, ctypes.c_void_p]
         lib.lm_bilinear_up2.argtypes = shape + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.lm_avg_pool2_bwd.argtypes = shape + [ctypes.c_int, ctypes.c_void_p]
-        lib.lm_bilinear_up2_bwd.argtypes = shape + [ctypes.c_int, ctypes.c_void_p]
+        lib.lm_bilinear_up2_bwd.argtypes = shape + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         for fn in (lib.lm_avg_pool2, lib.lm_bilinear_up2, lib.lm_avg_pool2_bwd,
                    lib.lm_bilinear_up2_bwd):
             fn.restype = ctypes.c_int
@@ -189,18 +252,17 @@ def _checked(x: torch.Tensor, op: str) -> torch.Tensor:
 
 
 def _launch(fn_name: str, x: torch.Tensor, y: torch.Tensor, *plan: int, shape=None) -> bool:
-    """Launch a stencil kernel from ``x`` into ``y`` (with K3's tile plan
-    fields after the dtype); ``shape`` is the (N, H, W, C) the kernel is
-    told, ``x``'s by default. False when there is no work (an empty
-    tensor)."""
+    """Launch a stencil kernel from ``x`` into ``y`` on the current stream
+    of ``x``'s device (with a tile plan's fields after the dtype);
+    ``shape`` is the (N, H, W, C) the kernel is told, ``x``'s by default.
+    False when there is no work (an empty tensor)."""
     if y.numel() == 0:
         return False
-    fn = getattr(build(), fn_name)
     n, h, w, c = x.shape if shape is None else shape
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(
-        x.data_ptr(), y.data_ptr(), n, h, w, c, _DTYPE_CODES[x.dtype], *plan,
-        x.device.index, stream,
+    device = x.get_device()
+    rc = getattr(_LIB or build(), fn_name)(
+        x.data_ptr(), y.data_ptr(), n, h, w, c, _DTYPE_CODES[x.dtype], *plan, device,
+        torch._C._cuda_getCurrentRawStream(device),
     )
     if rc != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: cudaError {rc}")
@@ -223,7 +285,7 @@ def _up_forward(x: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
     y = torch.empty((n, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
     p = up2_plan((n, h, w, c), x.element_size(), (x.data_ptr() | y.data_ptr()) % 16 == 0)
-    if _launch("lm_bilinear_up2", x, y, p.vec, p.rows, p.tile_w, p.cvt, p.threads):
+    if _launch("lm_bilinear_up2", x, y, *p.args):
         count_launch(bilinear_up2)
     return y
 
@@ -255,8 +317,10 @@ def bilinear_up2_bwd(g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gradient {tuple(g.shape)} is not of a ×2 upsample")
     if g.device.type == "cpu":
         return bilinear_up2_bwd_reference(g)
-    dx = torch.empty((n, h2 // 2, w2 // 2, c), dtype=g.dtype, device=g.device)
-    if _launch("lm_bilinear_up2_bwd", g, dx, shape=(n, h2 // 2, w2 // 2, c)):
+    shape = (n, h2 // 2, w2 // 2, c)
+    dx = torch.empty(shape, dtype=g.dtype, device=g.device)
+    p = up2_bwd_plan(shape, g.element_size(), (g.data_ptr() | dx.data_ptr()) % 16 == 0)
+    if _launch("lm_bilinear_up2_bwd", g, dx, *p.args, shape=shape):
         count_launch(bilinear_up2_bwd)
     return dx
 

@@ -11,7 +11,8 @@ Tolerances:
   plain versions' formulas (the port's compute in float32), each copy first
   held bit-equal to the port's in float32.
 * On the card (``cuda``-marked): none — the adjoint kernels are bit-equal to
-  their plain versions in bfloat16 and float32. Run there with
+  their plain versions in bfloat16 and float32, on the vector and the
+  scalar path. Run there with
   ``python -m pytest --noconftest -m cuda tests/test_torch_stencil_grad.py``;
   JAX is imported inside the parity tests only.
 """
@@ -26,12 +27,17 @@ from lungmask_tpu_torch.ops.kernels import stencil
 # The narrow U-Net's (depth 3, wf 2, 64² slices, batch 2) stencil inputs.
 UNET_POOL = [(2, 64, 64, 4), (2, 32, 32, 8)]
 UNET_UP = [(2, 16, 16, 16), (2, 32, 32, 8)]
-# Odd sizes (a dropped row or column), one row, K3's tile-straddling shapes.
+# Odd sizes (a dropped row or column), one row, tile-straddling shapes of
+# K3 and K3ᵀ (ragged row and column tiles, a short last channel slab).
 ODD = [(3, 33, 35, 4), (2, 17, 9, 12), (1, 3, 3, 5), (1, 1, 3, 5)]
-TILES = [(2, 37, 70, 24), (1, 5, 129, 136), (1, 1, 1, 8)]
+TILES = [(2, 37, 70, 24), (1, 5, 129, 136), (1, 1, 1, 8), (2, 19, 13, 264), (1, 10, 9, 520)]
 # The production U-Net's shapes at batch 2 (wf=6, 256²).
 WF6_POOL = [(2, 256, 256, 64), (2, 128, 128, 128), (2, 64, 64, 256), (2, 32, 32, 512)]
 WF6_UP = [(2, 16, 16, 1024), (2, 32, 32, 512), (2, 64, 64, 256), (2, 128, 128, 128)]
+# K3ᵀ's outputs in a train step (batch 8) and an inference chunk (32), and
+# on the mesh's padded bands (h/2 + 1 rows at 2 bands, h/2 + 2 inside).
+UNET_UP_B = [(b,) + s[1:] for b in (8, 32) for s in WF6_UP]
+BANDS_UP = [(8, s[1] // 2 + pad) + s[2:] for s in WF6_UP for pad in (1, 2)]
 
 
 def _normal(shape, seed):
@@ -178,6 +184,63 @@ def test_adjoint_wrappers_check_their_input():
         stencil.bilinear_up2_bwd(torch.zeros((1, 4, 4, 2), dtype=torch.float16))
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", UNET_UP_B + BANDS_UP + ODD + TILES)
+def test_up2_bwd_plan_covers_output_once(shape, itemsize):
+    """K3ᵀ's tile plan, walked as the kernel walks it, takes every dx row,
+    column and channel exactly once; the staged gradient window holds every
+    clamped tap of every dx in its tile; the block fits the card."""
+    n, h, w, c = shape
+    for aligned in (True, False):
+        p = stencil.up2_bwd_plan(shape, itemsize, aligned)
+        assert p.backward and p.vec in (1, 16 // itemsize) and c % p.vec == 0
+        assert p.threads % p.cvt == 0 and p.cvt <= p.threads <= stencil.UP2_MAX_THREADS
+        assert p.smem_bytes <= stencil.SMEM_LIMIT
+        images, tiles_h, tiles_w, slabs = p.grid(shape)
+        staged_rows, staged_cols = p.staged
+        slots = p.threads // p.cvt
+        rows, cols, chans = np.zeros(h, int), np.zeros(w, int), np.zeros(c, int)
+        for ti in range(tiles_h):
+            i0 = ti * p.rows
+            # Staged row s holds gradient row clamp(2*i0 - 1 + s).
+            window = np.clip(2 * i0 - 1 + np.arange(staged_rows), 0, 2 * h - 1)
+            for slot in range(slots):  # slot takes dx rows r = slot, slot + slots, ... < rows
+                for r in range(slot, p.rows, slots):
+                    i = i0 + r
+                    if i >= h:
+                        break
+                    rows[i] += 1
+                    taps = 2 * r + np.arange(4)  # staged rows 2r .. 2r + 3
+                    assert taps[-1] < staged_rows
+                    assert (window[taps] == np.clip(2 * i - 1 + np.arange(4), 0, 2 * h - 1)).all()
+        for tj in range(tiles_w):
+            j0 = tj * p.tile_w
+            window = np.clip(2 * j0 - 1 + np.arange(staged_cols), 0, 2 * w - 1)
+            for jj in range(min(p.tile_w, w - j0)):
+                cols[j0 + jj] += 1
+                taps = 2 * jj + np.arange(4)  # staged columns 2jj .. 2jj + 3
+                assert taps[-1] < staged_cols
+                j = j0 + jj
+                assert (window[taps] == np.clip(2 * j - 1 + np.arange(4), 0, 2 * w - 1)).all()
+        for slab in range(slabs):  # vectors whose first channel is below c
+            for v in range(p.cvt):
+                ch = (slab * p.cvt + v) * p.vec
+                if ch < c:
+                    chans[ch : ch + p.vec] += 1
+        assert images == n
+        assert (rows == 1).all() and (cols == 1).all() and (chans == 1).all()
+
+
+@pytest.mark.parametrize("shape, blocks", [((32, 16, 16, 1024), 2 * 132), ((8, 16, 16, 1024), 132)])
+def test_up2_bwd_plan_fills_the_card_at_the_smallest_unet_shape(shape, blocks):
+    """K3ᵀ's smallest U-Net output in bf16 still gives at least two blocks
+    per SM (132 SMs) in an inference chunk and one per SM in a train
+    step."""
+    p = stencil.up2_bwd_plan(shape, 2)
+    assert np.prod(p.grid(shape)) >= blocks
+    assert 2 * p.smem_bytes <= stencil.SMEM_LIMIT  # two blocks fit one SM
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
@@ -187,7 +250,8 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 def test_adjoint_kernels_bit_equal_plain_adjoints_on_gpu(dtype):
     dev = tp.cuda_device()
     cases = [("pool", s) for s in WF6_POOL + UNET_POOL + ODD + [(2, 1, 5, 8)]]
-    cases += [("up", s) for s in WF6_UP + UNET_UP + ODD + TILES]
+    cases += [("pool", (8, s[1] // 2) + s[2:]) for s in WF6_POOL]  # the bands' shapes
+    cases += [("up", s) for s in WF6_UP + UNET_UP + ODD + TILES + BANDS_UP]
     for i, (op, shape) in enumerate(cases):
         out = _pool_out(shape) if op == "pool" else _up_out(shape)
         g = torch.from_numpy(_normal(out, 20 + i)).to(dev, dtype)
@@ -201,6 +265,23 @@ def test_adjoint_kernels_bit_equal_plain_adjoints_on_gpu(dtype):
         assert fn.launches == before + 1, (op, shape)
         assert got.shape == shape and got.is_contiguous()
         assert torch.equal(_bits(got), _bits(want)), (op, shape)
+
+
+@pytest.mark.cuda
+def test_adjoint_kernels_scalar_path_on_unaligned_input():
+    """A base that is not 16-byte aligned takes the adjoints' scalar path."""
+    dev = tp.cuda_device()
+    shape = (2, 6, 10, 8)
+    for out, seed in ((_pool_out(shape), 12), (_up_out(shape), 13)):
+        flat = torch.from_numpy(_normal((1 + int(np.prod(out)),), seed)).to(dev)
+        g = flat[1:].view(out)
+        assert g.data_ptr() % 16 != 0
+        if out == _pool_out(shape):
+            got, want = stencil.avg_pool2_bwd(g, shape), stencil.avg_pool2_bwd_reference(g, shape)
+        else:
+            got, want = stencil.bilinear_up2_bwd(g), stencil.bilinear_up2_bwd_reference(g)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want)), out
 
 
 @pytest.mark.cuda
