@@ -15,7 +15,20 @@ seed, with crafted weights:
   models from a temporary ``$LUNGMASK_TPU_CACHE``;
 * the main path — ``LMInferer(...).apply`` and the ``lungmask-torch INPUT
   OUTPUT`` CLI with their defaults (hybrid preprocessing, bf16 U-Net, exact
-  host postprocessing);
+  host postprocessing); one ``apply`` with ``$LUNGMASK_TPU_TRACE_DIR`` set,
+  whose ``torch.profiler`` trace must name K1, K2 and K3; and, as readings,
+  the host-heap policy off (``LUNGMASK_TPU_NO_MALLOC_TUNING=1
+  LUNGMASK_TPU_PREFAULT_MB=0``) and on in four fresh processes (off, on,
+  on, off): three warm ``apply``s each with their stage seconds, and the
+  seconds to fill a fresh 256 MB buffer;
+* the weight store — a full-width reference ``.pth``
+  (``synthetic.reference_state_dict(3)``) fetched by ``LMInferer("R231")``
+  through a ``file://`` URL into a fresh ``$LUNGMASK_TPU_CACHE``, its
+  sha256 checked, converted and cached as ``.npz`` (seconds of each step
+  printed); its ``apply`` (K1/K2/K3 launched 1/24/24) equal to
+  ``LMInferer(modelpath=<the .pth>)``'s; the ``.npz`` reloaded with no
+  fetch; one-byte-mutated copies, fetched and placed, refused with
+  "Checksum mismatch";
 * device postprocessing — ``LMInferer(postprocessing_mode="device")``,
   single model and fused, its cleanup of one class map on the card held
   bit for bit against the same cleanup on the CPU, and its masks compared
@@ -96,9 +109,9 @@ call of torch's own backward op for the same function
 The kernels line gives K2 and K3 per 32-slice inference chunk and K2ᵀ and
 K3ᵀ per train step of batch 8, each summed over the U-Net's four shapes.
 
-Phases: device, build, kernel, unet, stencil, fused, inferer, cli, dicom,
-postdev, cohort, serve, devprep, train, variants, mesh, space; each prints its
-results on its own lines, and fails if it left torch's current CUDA device
+Phases: device, build, kernel, unet, stencil, fused, inferer, weights, cli,
+dicom, postdev, cohort, serve, devprep, train, variants, mesh, space; each
+prints its results on its own lines, and fails if it left torch's current CUDA device
 changed (the launchers must restore the caller's device). The second-to-last line is a JSON
 object describing the kernels; the last line is ``{"ok": true, "device":
 {...}}`` and is printed only when every phase passed. Exits non-zero,
@@ -149,6 +162,10 @@ VOLUME96_SHAPES = [(2, 6, 6, 1024), (2, 12, 12, 512), (2, 24, 24, 256), (2, 48, 
 K1_BATCHES = (1, 192, 193)
 FORWARD = ("bodymask_labels", "avg_pool2", "bilinear_up2")
 BACKWARD = ("avg_pool2_bwd", "bilinear_up2_bwd")
+# The CUDA kernels of the main path as a trace names them.
+TRACE_KERNELS = ("bodymask_kernel", "avg_pool2_kernel", "bilinear_up2_kernel")
+HEAP_CALLS = 3  # warm applies per process of the heap-policy reading
+HEAP_PROBE_MB = 256  # the first-touch probe's buffer, inside the 384 MB pre-faulted
 TRAIN_BATCH = 8
 # The same stencils in one train step (batch 8); K2ᵀ and K3ᵀ take the
 # gradients of their outputs.
@@ -798,13 +815,14 @@ class Smoke:
         inferer = LMInferer(modelpath=wpath, tqdm_disable=True)
         self.state["inferer"] = inferer
         self.check(inferer.device.type == "cuda", f"inferer on {inferer.device}")
-        masks = []
+        masks, walls = [], []
         _reset_launches()
         for call in range(3):
             inferer.timings.reset()
             t0 = time.perf_counter()
             masks.append(inferer.apply(vol))
             wall = time.perf_counter() - t0
+            walls.append(wall)
             st = inferer.timings.summary()
             stages = " ".join(
                 f"{k} {st.get(k, 0.0):.4f}" for k in ("preprocess", "unet", "postprocess", "paste_back")
@@ -851,6 +869,244 @@ class Smoke:
         self.check(small_launches == {"bodymask_labels": 0, "avg_pool2": 8, "bilinear_up2": 8},
                    f"small-volume launches {small_launches}")
         self.check(small_mask.shape == small.shape and lungs == [0, 1, 2], f"labels {lungs}")
+        self._traced_apply(inferer, vol, m, min(walls[1:]))
+        self._heap_readings(vol, wpath)
+
+    def _traced_apply(self, inferer, vol, mask, untraced_s):
+        """One ``apply`` with ``$LUNGMASK_TPU_TRACE_DIR`` set: its
+        ``torch.profiler`` trace must name K1, K2 and K3 (names, not counts:
+        a window that follows another in one process can lose its first
+        kernels), and its mask equal the untraced one."""
+        import glob
+
+        import numpy as np
+
+        trace_dir = os.path.join(self.state["tmp"], "trace")
+        os.environ["LUNGMASK_TPU_TRACE_DIR"] = trace_dir
+        try:
+            t0 = time.perf_counter()
+            traced = inferer.apply(vol)
+            wall = time.perf_counter() - t0
+        finally:
+            del os.environ["LUNGMASK_TPU_TRACE_DIR"]
+        files = glob.glob(os.path.join(trace_dir, "inference", "*.pt.trace.json"))
+        self.check(len(files) == 1, f"trace files {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        found = {k: sum(k + "<" in n or k + "(" in n or n == k for n in kernels)
+                 for k in TRACE_KERNELS}
+        print(f"[inferer] traced apply: {wall:.4f} s against {untraced_s:.4f} s untraced "
+              f"(the fastest warm call); trace {os.path.getsize(files[0]) / 2**20:.1f} MiB, "
+              f"{len(events)} events, {len(kernels)} kernels; launches named {found}")
+        self.check(all(found.values()), f"the trace lacks a kernel: {found}")
+        self.check(np.array_equal(traced, mask), "the traced apply's mask differs")
+
+    def _heap_readings(self, vol, wpath):
+        """Readings, not a gate: the host-heap policy off
+        (``LUNGMASK_TPU_NO_MALLOC_TUNING=1 LUNGMASK_TPU_PREFAULT_MB=0``) and
+        on (the defaults), each in a fresh process (``mallopt`` is
+        process-wide), in the order off, on, on, off: per process one warm-up
+        ``apply`` then HEAP_CALLS timed ones with their stage seconds, and
+        before them a probe of the first-touch cost: the seconds to fill a
+        fresh HEAP_PROBE_MB buffer, three times (glibc's default policy maps
+        new pages for each; the retained, pre-faulted heap reuses them)."""
+        import numpy as np
+
+        path = os.path.join(self.state["tmp"], "heap_phantom.npy")
+        np.save(path, vol)
+        code = (
+            "import json, sys, time\n"
+            "import numpy as np\n"
+            "from lungmask_tpu_torch import LMInferer, runtime\n"
+            "t0 = time.perf_counter()\n"
+            "tuned, mb = runtime.tune_host_allocator(), runtime.prefault_host_heap()\n"
+            "policy_s = time.perf_counter() - t0\n"
+            "touch_s = []\n"
+            "for _ in range(3):\n"
+            "    t0 = time.perf_counter()\n"
+            "    np.empty(int(sys.argv[4]) << 20, np.uint8).fill(1)\n"
+            "    touch_s.append(time.perf_counter() - t0)\n"
+            "vol = np.load(sys.argv[1])\n"
+            "inferer = LMInferer(modelpath=sys.argv[2], tqdm_disable=True)\n"
+            "inferer.apply(vol)\n"
+            "calls = []\n"
+            "for _ in range(int(sys.argv[3])):\n"
+            "    inferer.timings.reset()\n"
+            "    t0 = time.perf_counter()\n"
+            "    inferer.apply(vol)\n"
+            "    calls.append({'wall': time.perf_counter() - t0, **inferer.timings.summary()})\n"
+            "print(json.dumps({'tuned': tuned, 'prefault_mb': mb, 'policy_s': policy_s,\n"
+            "                  'touch_s': touch_s, 'calls': calls}))\n"
+        )
+        base = {k: v for k, v in os.environ.items()
+                if k not in ("LUNGMASK_TPU_NO_MALLOC_TUNING", "LUNGMASK_TPU_PREFAULT_MB")}
+        base["PYTHONPATH"] = REPO + os.pathsep + os.environ.get("PYTHONPATH", "")
+        off = {"LUNGMASK_TPU_NO_MALLOC_TUNING": "1", "LUNGMASK_TPU_PREFAULT_MB": "0"}
+        stages = ("preprocess", "unet", "postprocess", "paste_back")
+        for turn, (label, extra) in enumerate(
+                (("off", off), ("on", {}), ("on", {}), ("off", off))):
+            res = subprocess.run(
+                [sys.executable, "-c", code, path, wpath, str(HEAP_CALLS), str(HEAP_PROBE_MB)],
+                capture_output=True, text=True, cwd=REPO, env={**base, **extra}, timeout=300,
+            )
+            self.check(res.returncode == 0, f"heap reading failed:\n{res.stderr[-4000:]}")
+            r = json.loads(res.stdout.strip().splitlines()[-1])
+            print(f"[inferer] heap policy {label} (turn {turn + 1}): tune_host_allocator "
+                  f"{r['tuned']}, prefault_host_heap {r['prefault_mb']} MB in "
+                  f"{r['policy_s']:.4f} s | a fresh {HEAP_PROBE_MB} MB buffer filled in "
+                  + ", ".join(f"{t:.4f}" for t in r["touch_s"]) + " s")
+            for i, c in enumerate(r["calls"]):
+                st = " ".join(f"{k} {c.get(k, 0.0):.4f}" for k in stages)
+                print(f"[inferer]   warm call {i + 1}: {c['wall']:.4f} s | stage s: {st}")
+
+    def weights(self):
+        """The weight store on the card's machine: a full-width reference
+        ``.pth`` (``reference_state_dict(3)``, wf=6) fetched by
+        ``LMInferer("R231")`` through a ``file://`` URL into a fresh
+        ``$LUNGMASK_TPU_CACHE``, verified, converted and cached; its
+        ``apply`` against ``LMInferer(modelpath=<the .pth>)``; the cached
+        ``.npz`` reloaded with no fetch, by ``get_model`` and by a second
+        ``LMInferer("R231")`` (raw predictions against the .pth's);
+        one-byte-mutated copies, fetched and placed, refused."""
+        import hashlib
+
+        import numpy as np
+
+        torch = self.torch
+        from lungmask_tpu_torch import LMInferer
+        from lungmask_tpu_torch.models import convert, registry, synthetic
+
+        tmp = os.path.join(self.state["tmp"], "weights")
+        release = os.path.join(tmp, "release")
+        os.makedirs(release)
+        t0 = time.perf_counter()
+        sd = synthetic.reference_state_dict(3)
+        src = os.path.join(release, "unet_r231.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, src)
+        with open(src, "rb") as f:
+            sha = hashlib.sha256(f.read()).hexdigest()
+        pth = os.path.join(release, f"unet_r231-{sha[:8]}.pth")
+        os.replace(src, pth)
+        print(f"[weights] release checkpoint {os.path.basename(pth)}: "
+              f"{os.path.getsize(pth) / 2**20:.1f} MiB, {len(sd)} tensors, written in "
+              f"{time.perf_counter() - t0:.3f} s")
+
+        saved = {"url": registry.MODEL_URLS["R231"],
+                 "cache": os.environ.get("LUNGMASK_TPU_CACHE"),
+                 **{name: getattr(registry, name) for name in ("_download", "_verify_sha")},
+                 **{name: getattr(convert, name) for name in ("convert_pth", "save_npz")}}
+        seconds = {}
+
+        def timed(owner, name):
+            fn = saved[name]
+
+            def wrapper(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+            setattr(owner, name, wrapper)
+
+        def use(url, cache):
+            registry.MODEL_URLS["R231"] = (url, 3)
+            os.environ["LUNGMASK_TPU_CACHE"] = cache
+
+        try:
+            cache = os.path.join(tmp, "cache")
+            use("file://" + pth, cache)
+            for owner, name in ((registry, "_download"), (registry, "_verify_sha"),
+                                (convert, "convert_pth"), (convert, "save_npz")):
+                timed(owner, name)
+            t0 = time.perf_counter()
+            inferer = LMInferer("R231", tqdm_disable=True)
+            built = time.perf_counter() - t0
+            for owner, name in ((registry, "_download"), (registry, "_verify_sha"),
+                                (convert, "convert_pth"), (convert, "save_npz")):
+                setattr(owner, name, saved[name])
+            rest = built - sum(seconds.values())
+            print(f"[weights] LMInferer('R231') with an empty cache: {built:.3f} s = fetch "
+                  f"{seconds['_download']:.3f} + verify (sha256) {seconds['_verify_sha']:.3f} + "
+                  f"convert {seconds['convert_pth']:.3f} + write .npz {seconds['save_npz']:.3f} "
+                  f"+ the rest (the U-Net to the card, the heap policy) {rest:.3f} s")
+            self.check(inferer.device.type == "cuda", f"inferer on {inferer.device}")
+            npz = registry._npz_cache_path("R231")
+            self.check(sorted(os.listdir(cache)) == sorted(
+                [os.path.basename(pth), os.path.basename(npz)]), f"cache {os.listdir(cache)}")
+            meta = convert.load_npz(npz)[1]
+            want_meta = {"source": os.path.basename(pth), "model": "R231", "source_sha256": sha}
+            self.check(meta == want_meta, f".npz meta {meta}")
+
+            vol = self.state["phantom"]
+            _reset_launches()
+            mask = inferer.apply(vol)
+            launches = _launches()
+            ref = LMInferer(modelpath=pth, tqdm_disable=True).apply(vol)
+            labels = sorted(int(v) for v in np.unique(mask))
+            same = bool(np.array_equal(mask, ref))
+            print(f"[weights] apply of the {vol.shape[0]}-slice phantom: launches {launches}, "
+                  f"labels {labels}, equal to LMInferer(modelpath=<the .pth>): {same}")
+            want = {"bodymask_labels": 1, "avg_pool2": 24, "bilinear_up2": 24}
+            self.check(launches == want, f"launches {launches}, expected {want}")
+            self.check(same, "the fetched model's mask differs from the .pth's")
+            self.check(mask.shape == vol.shape and mask.dtype == np.uint8, f"mask {mask.shape}")
+            self.check(set(labels) <= {0, 1, 2}, f"labels {labels}")
+
+            os.remove(pth)
+
+            def no_fetch(url, dest):
+                raise AssertionError(f"fetched {url} again")
+
+            registry._download = no_fetch
+            t0 = time.perf_counter()
+            params, n = registry.get_model("R231")
+            load = time.perf_counter() - t0
+            want_params = convert.convert_state_dict(sd)
+            flat, want_flat = convert.flatten_params(params), convert.flatten_params(want_params)
+            equal = sorted(flat) == sorted(want_flat) and all(
+                np.array_equal(flat[k], want_flat[k]) for k in flat)
+            print(f"[weights] cached .npz reloaded with no fetch: {load:.3f} s, n_classes {n}, "
+                  f"{len(flat)} arrays equal to the conversion of the state dict: {equal}")
+            self.check(n == 3 and equal, "the cached .npz differs")
+            # The raw class maps (no cleanup) show the weights at work.
+            raw = LMInferer("R231", tqdm_disable=True, volume_postprocessing=False).apply(vol)
+            raw_ref = LMInferer(modelpath=os.path.join(cache, os.path.basename(pth)),
+                                tqdm_disable=True, volume_postprocessing=False).apply(vol)
+            raw_labels = sorted(int(v) for v in np.unique(raw))
+            same = bool(np.array_equal(raw, raw_ref))
+            print(f"[weights] raw predictions of LMInferer('R231') from the cache: labels "
+                  f"{raw_labels}, equal to the .pth's: {same}")
+            self.check(same and len(raw_labels) >= 2, f"raw predictions, labels {raw_labels}")
+
+            data = bytearray(open(os.path.join(cache, os.path.basename(pth)), "rb").read())
+            data[len(data) // 2] ^= 0x01
+            for how in ("fetched", "placed"):
+                cache_m = os.path.join(tmp, f"cache_{how}")
+                bad = os.path.join(release if how == "fetched" else cache_m, os.path.basename(pth))
+                os.makedirs(os.path.dirname(bad), exist_ok=True)
+                with open(bad, "wb") as f:
+                    f.write(bytes(data))
+                registry._download = saved["_download"] if how == "fetched" else no_fetch
+                use("file://" + os.path.join(release, os.path.basename(pth)), cache_m)
+                try:
+                    registry.get_model("R231")
+                    refused = "no error"
+                except RuntimeError as e:
+                    refused = str(e)
+                ok = refused.startswith("Checksum mismatch")
+                print(f"[weights] one-byte-mutated copy, {how}: refused with "
+                      f"'{refused[:60]}...': {ok}")
+                self.check(ok, f"the mutated {how} copy was not refused: {refused}")
+                os.remove(bad)
+        finally:
+            registry.MODEL_URLS["R231"] = saved["url"]
+            registry._download, registry._verify_sha = saved["_download"], saved["_verify_sha"]
+            convert.convert_pth, convert.save_npz = saved["convert_pth"], saved["save_npz"]
+            if saved["cache"] is None:
+                os.environ.pop("LUNGMASK_TPU_CACHE", None)
+            else:
+                os.environ["LUNGMASK_TPU_CACHE"] = saved["cache"]
 
     def cli(self):
         import numpy as np
@@ -2174,6 +2430,7 @@ def main() -> int:
             "postdev": {"phantom": "kernel", "inferer": "inferer", "fused_mask": "fused"},
             "cohort": {"phantom": "kernel", "inferer": "inferer", "dev_inferer": "postdev"},
             "serve": {"phantom": "kernel", "inferer": "inferer"},
+            "weights": {"phantom": "kernel"},
             "devprep": {"phantom": "kernel", "inferer": "inferer", "mask": "inferer",
                         "smi": "device"},
             "train": {"phantom": "kernel", "mask": "inferer", "smi": "device"},
@@ -2183,9 +2440,9 @@ def main() -> int:
             "space": {"phantom": "kernel", "params": "unet", "mask": "inferer",
                       "weights": "inferer", "cache": "fused", "smi": "device"},
         }
-        for name in ("device", "build", "kernel", "unet", "stencil", "fused", "inferer", "cli",
-                     "dicom", "postdev", "cohort", "serve", "devprep", "train", "variants",
-                     "mesh", "space"):
+        for name in ("device", "build", "kernel", "unet", "stencil", "fused", "inferer",
+                     "weights", "cli", "dicom", "postdev", "cohort", "serve", "devprep", "train",
+                     "variants", "mesh", "space"):
             missing = [(key, maker) for key, maker in needs.get(name, {}).items()
                        if key not in smoke.state]
             if missing:

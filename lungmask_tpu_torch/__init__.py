@@ -15,7 +15,8 @@ module-level names), ``runtime.cohort.run_cohort``,
 
 __version__ = "0.1.0"
 
+from lungmask_tpu_torch import metrics
 from lungmask_tpu_torch.inferer import LMInferer, apply, apply_fused
 from lungmask_tpu_torch.io.image import MedicalImage
 
-__all__ = ["LMInferer", "MedicalImage", "apply", "apply_fused", "__version__"]
+__all__ = ["LMInferer", "MedicalImage", "apply", "apply_fused", "metrics", "__version__"]

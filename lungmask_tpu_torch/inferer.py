@@ -54,6 +54,7 @@ from lungmask_tpu_torch.logger import logger
 from lungmask_tpu_torch.models.registry import MODEL_URLS, get_model
 from lungmask_tpu_torch.ops import native, resample
 from lungmask_tpu_torch.parallel.sharded import ShardedUNetRunner, make_sharded_postprocess
+from lungmask_tpu_torch.runtime import prefault_host_heap, tune_host_allocator
 from lungmask_tpu_torch.runtime.engine import (
     UNetRunner,
     pack_bits,
@@ -67,7 +68,7 @@ from lungmask_tpu_torch.transforms.postprocess_device import (
     postprocess_device_packed2,
 )
 from lungmask_tpu_torch.utils.device import resolve_device
-from lungmask_tpu_torch.utils.profiling import StageTimer
+from lungmask_tpu_torch.utils.profiling import StageTimer, trace
 
 ImageLike = Union[MedicalImage, np.ndarray]
 
@@ -145,6 +146,12 @@ class LMInferer:
             )
         if precision not in ("bfloat16", "float32"):
             raise ValueError(f"precision must be 'bfloat16' or 'float32', got {precision!r}")
+
+        tune_host_allocator()
+        # Pre-touch the heap once so mask-sized host buffers (paste canvas,
+        # unpacked class map, postprocessing scratch) never first-fault
+        # inside a timed stage (runtime.prefault_host_heap).
+        prefault_host_heap()
 
         self.mesh = mesh
         self.device = resolve_device(device, force_cpu) if mesh is None else mesh.data_devices[0]
@@ -247,7 +254,7 @@ class LMInferer:
 
     def _infer_volume(self, inimg_raw: np.ndarray) -> np.ndarray:
         """LPS-space volume → mask (preprocess → U-Net → postprocess → paste)."""
-        with self._stage_bar() as bar:
+        with trace("inference"), self._stage_bar() as bar:
             with self.timings.stage("preprocess"):
                 normalized, boxes = self._preprocess(inimg_raw)
             bar.update(1)

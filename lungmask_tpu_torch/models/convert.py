@@ -8,10 +8,12 @@
   (fine-tuned weights and gradients back in the JAX layout).
 * :func:`load_npz` / :func:`save_npz` read and write the JAX package's flat
   ``.npz`` format unchanged.
-* :func:`convert_pth` takes a reference ``.pth`` state dict (any variant:
-  production, ``residual``, ``upconv``; :func:`detect_config`) through the
-  same BatchNorm fold (eps 1e-5) into the HWIO numpy tree, with the JAX
-  package's variant keys (``res``, ``bn_pre``, ``upconv``).
+* :func:`convert_pth` (:func:`load_pth_state_dict`, then
+  :func:`convert_state_dict` and :func:`infer_n_classes`) takes a reference
+  ``.pth`` state dict (any variant: production, ``residual``, ``upconv``;
+  :func:`detect_config`) through the same BatchNorm fold (eps 1e-5) into
+  the HWIO numpy tree, with the JAX package's variant keys (``res``,
+  ``bn_pre``, ``upconv``).
 
 Conversion rules (reference U-Net, lungmask/resunet.py): conv kernels are
 OIHW in torch and HWIO in the JAX tree; inference-mode BatchNorm folds into
@@ -182,11 +184,29 @@ def convert_state_dict(state_dict: Mapping[str, Any], depth: int | None = None) 
     return {"down": down, "up": up, "last": _conv(state_dict, "last")}
 
 
+def infer_n_classes(state_dict: Mapping[str, Any]) -> int:
+    """len() of the last state-dict tensor (the final conv bias), as
+    lungmask/mask.py:56 infers it."""
+    return len(_to_numpy(list(state_dict.values())[-1]))
+
+
+def load_pth_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A torch ``.pth`` checkpoint as numpy arrays (tensors only:
+    ``weights_only=True``)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: _to_numpy(v) for k, v in sd.items()}
+
+
 def convert_pth(path: str) -> Tuple[Params, int]:
     """Reference ``.pth`` checkpoint → (JAX-layout numpy tree, n_classes)."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = {k: _to_numpy(v) for k, v in sd.items()}
-    return convert_state_dict(sd), len(list(sd.values())[-1])
+    sd = load_pth_state_dict(path)
+    return convert_state_dict(sd), infer_n_classes(sd)
+
+
+def torch_available() -> bool:
+    """Whether ``.pth`` conversion is possible here: always, since the port
+    imports torch (the JAX package's counterpart probes for it)."""
+    return True
 
 
 def flatten_params(params: Params) -> Dict[str, np.ndarray]:

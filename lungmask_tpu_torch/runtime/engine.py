@@ -135,6 +135,11 @@ class UNetRunner:
         Conv kernels are stored pre-cast to ``compute_dtype`` (the JAX
         engine's ``_cast_kernels``); biases and affines stay float32.
         ``batch_size=None`` picks :data:`DEFAULT_CHUNK`."""
+        # The class-map copies and unpacks allocate tens of MB of host
+        # memory per call; keep those pages on the heap across calls.
+        from lungmask_tpu_torch.runtime import tune_host_allocator
+
+        tune_host_allocator()
         self.device = torch.device(device)
         self.model = UNet(convert.from_jax_params(params, self.device), compute_dtype)
         self.model.eval()

@@ -1,0 +1,1 @@
+"""Offline tools of the port (counterparts of the repository's ``tools/``)."""

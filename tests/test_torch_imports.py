@@ -45,6 +45,8 @@ def test_port_imports_without_jax_or_tqdm():
         "                                      store, trainer)\n"
         "import lungmask_tpu_torch.parallel\n"
         "from lungmask_tpu_torch.parallel import halo, mesh, multihost, sharded\n"
+        "import lungmask_tpu_torch.models, lungmask_tpu_torch.runtime\n"
+        "import lungmask_tpu_torch.tools.convert_weights, lungmask_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm', 'PIL'))\n"
         "assert not bad, bad\n"
@@ -73,6 +75,38 @@ def test_cli_entry_point_without_jax(flag):
     )
     assert res.returncode == 0, res.stderr
     assert ("--modelpath" in res.stdout) if flag == "--help" else ("0.1.0" in res.stdout)
+
+
+def test_weight_store_and_converter_without_jax(tmp_path):
+    """A release checkpoint fetched from a ``file://`` URL, verified,
+    converted and cached by the registry, and the offline converter, with
+    the machine's missing packages blocked."""
+    res = _run(
+        "import hashlib, os, runpy, torch\n"
+        "from lungmask_tpu_torch.models import convert, registry, synthetic\n"
+        "sd = synthetic.reference_state_dict(3, depth=2, wf=2)\n"
+        f"tmp = {str(tmp_path)!r}\n"
+        "src = os.path.join(tmp, 'unet_r231.pth')\n"
+        "torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, src)\n"
+        "sha = hashlib.sha256(open(src, 'rb').read()).hexdigest()\n"
+        "pth = os.path.join(tmp, f'unet_r231-{sha[:8]}.pth')\n"
+        "os.replace(src, pth)\n"
+        "registry.MODEL_URLS['R231'] = ('file://' + pth, 3)\n"
+        "os.environ['LUNGMASK_TPU_CACHE'] = os.path.join(tmp, 'cache')\n"
+        "params, n = registry.get_model('R231')\n"
+        "meta = convert.load_npz(registry._npz_cache_path('R231'))[1]\n"
+        "assert n == 3 and meta['source_sha256'] == sha, meta\n"
+        "sys.argv = ['convert_weights', pth, os.path.join(tmp, 'out.npz')]\n"
+        "runpy.run_module('lungmask_tpu_torch.tools.convert_weights', run_name='__main__')\n"
+        "out = convert.load_npz(os.path.join(tmp, 'out.npz'))\n"
+        "assert out[1] == {'source': os.path.basename(pth)}, out[1]\n"
+        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm', 'PIL'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
 
 
 def test_dicom_series_without_jax_tqdm_or_pillow(tmp_path):

@@ -115,12 +115,23 @@ def test_pth_conversion_equals_jax(tmp_path):
 
 
 def test_registry_reads_the_jax_cache_and_never_downloads(tmp_path, monkeypatch):
+    """With nothing cached the port tries the release URL (here a
+    ``file://`` URL of an absent file) and raises as JAX does; with the JAX
+    package's ``.npz`` in the cache it reads that and fetches nothing."""
     from lungmask_tpu.models import registry as jregistry
     from lungmask_tpu_torch.models import registry
 
     monkeypatch.setenv("LUNGMASK_TPU_CACHE", str(tmp_path))
-    with pytest.raises(RuntimeError, match="does not download"):
+    absent = (tmp_path / "release" / "unet_r231-d5d2fc3d.pth").as_uri()
+    monkeypatch.setitem(registry.MODEL_URLS, "R231", (absent, 3))
+    monkeypatch.setitem(jregistry.MODEL_URLS, "R231", (absent, 3))
+    with pytest.raises(RuntimeError, match="could not be downloaded"):
         registry.get_model("R231")
+
+    def no_fetch(url, dest):
+        raise AssertionError(f"fetched {url}")
+
+    monkeypatch.setattr(registry, "_download", no_fetch)
     params = synthetic.laterality_params(wf=2)
     jconvert.save_npz(jregistry._npz_cache_path("R231"), params)
     got, n = registry.get_model("R231")
