@@ -16,7 +16,9 @@ seed, with crafted weights:
 * the main path — ``LMInferer(...).apply`` and the ``lungmask-torch INPUT
   OUTPUT`` CLI with their defaults (hybrid preprocessing, bf16 U-Net, exact
   host postprocessing); one ``apply`` with ``$LUNGMASK_TPU_TRACE_DIR`` set,
-  whose ``torch.profiler`` trace must name K1, K2 and K3; and, as readings,
+  whose ``torch.profiler`` trace must name K1, K2 and K3 (the union of its
+  kernels' intervals gives the device's busy time and idle share, and the
+  kernels with the most time are printed); and, as readings,
   the host-heap policy off (``LUNGMASK_TPU_NO_MALLOC_TUNING=1
   LUNGMASK_TPU_PREFAULT_MB=0``) and on in four fresh processes (off, on,
   on, off): three warm ``apply``s each with their stage seconds, and the
@@ -62,7 +64,11 @@ seed, with crafted weights:
   (the stencil phase holds K2 and K3 there too); train-step time, slices/s,
   peak memory and a profile of three steps; and the ``python -m
   lungmask_tpu_torch.train.finetune`` entry point on phantom NIfTI pairs,
-  its weights applied by ``LMInferer``;
+  its weights applied by ``LMInferer``; before any step, ``evaluate`` of the
+  crafted ``laterality_params(wf=6)`` (whose masks the labels are) on the
+  eval slices, bf16 on the card (K2/K3 4 per chunk), must read a macro Dice
+  above 0.5 and within 1e-3 of the same call on the CPU at float32; after
+  the fresh fit, the class shares the fresh net predicts there;
 * the U-Net variants — ``residual``, ``upconv`` and both, at production
   width from seeded reference-layout state dicts
   (``synthetic.reference_state_dict``): on one 32-slice chunk, GPU f32
@@ -92,7 +98,22 @@ seed, with crafted weights:
   per band per ``apply``; ``make_sharded_postprocess`` of the phantom's map
   on the 2x2 blocks, bit-equal; ``fit(mesh=1x2)`` beside the unsharded fit
   (losses within 1e-3), one f32 step (loss 1e-5, leaves 1e-3 of their
-  largest) and the banded step's time.
+  largest) and the banded step's time;
+* the examples — ``examples/torch/segment_volume.py`` on the phantom as
+  NIfTI (R231 = the crafted weights, placed in a fresh
+  ``$LUNGMASK_TPU_CACHE``; its mask equal to the inferer phase's, K1/K2/K3
+  launched 1/24/24) and with ``--lobes`` (the fused phase's cache; equal to
+  the fused phase's mask), ``cohort_streaming.py`` over three phantom
+  volumes (each mask equal to ``apply``'s) and ``finetune.py`` for one
+  epoch on two 16-slice phantom pairs and a held-out one, warm-started from
+  the cached R231 (its macro Dice above 0.5); the four runs at once, each
+  as ``__main__`` in a fresh interpreter that then prints its launch
+  counts;
+* the U-Net's layers — ``lungmask_tpu_torch/tools/layer_bench.py`` at chunk
+  32 in bf16: each op of the forward timed alone (CUDA events) beside its
+  bound from ``tools/roofline.py`` (no share above 105%), the conv's and
+  its float32 epilogue's times apart, the sum of the ops beside the whole
+  chunk.
 
 Each path's calls run with every kernel's launch count set to 0 just before
 them and read just after. The stencils' times at the U-Net's bf16 shapes
@@ -110,7 +131,8 @@ The kernels line gives K2 and K3 per 32-slice inference chunk and K2ᵀ and
 K3ᵀ per train step of batch 8, each summed over the U-Net's four shapes.
 
 Phases: device, build, kernel, unet, stencil, fused, inferer, weights, cli,
-dicom, postdev, cohort, serve, devprep, train, variants, mesh, space; each
+dicom, postdev, cohort, serve, devprep, train, variants, mesh, space,
+examples, layers; each
 prints its results on its own lines, and fails if it left torch's current CUDA device
 changed (the launchers must restore the caller's device). The second-to-last line is a JSON
 object describing the kernels; the last line is ``{"ok": true, "device":
@@ -177,6 +199,10 @@ TRAIN_SLICES, EVAL_SLICES = 64, 32  # phantom[:64] to train, phantom[64:96] to e
 TRAIN_EPOCHS = 2  # 16 steps
 TRAIN_PEAK_LR = 1e-3  # a fresh net: default_optimizer's 1e-4 is a fine-tuning rate
 RESUME_RTOL = 1e-3
+WARM_DICE_MIN = 0.5  # evaluate of the crafted weights on the card, before any step
+WARM_DICE_ATOL = 1e-3  # the same, bf16 on the card against float32 on the CPU
+EXAMPLE_PAIR_SLICES = 16  # the fine-tune example's pairs: phantom[0:16], [16:32], [32:48]
+LAYER_SHARE_MAX = 1.05  # no op of layer_bench above its roofline bound (5% for timing)
 # The U-Net variants: (residual, up_mode) of the reference-layout state dict.
 VARIANTS = {"residual": (True, "upsample"), "upconv": (False, "upconv"),
             "residual+upconv": (True, "upconv")}
@@ -617,6 +643,7 @@ class Smoke:
               f"({32e3 / ms16:.1f} slices/s) | f32 {ms32:.3f} ms ({32e3 / ms32:.1f} slices/s)")
         self.check(agree >= BF16_MIN_AGREEMENT, f"bf16 agreement {agree} < {BF16_MIN_AGREEMENT}")
         self.check(classes == [0, 1, 2], f"expected classes 0-2, got {classes}")
+        self.state["chunk_ms"] = ms16
 
     def stencil(self):
         import torch.nn.functional as F
@@ -893,12 +920,25 @@ class Smoke:
         self.check(len(files) == 1, f"trace files {files}")
         with open(files[0]) as f:
             events = json.load(f)["traceEvents"]
-        kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        spans = sorted((e["ts"], e["ts"] + e["dur"], e.get("name", "")) for e in events
+                       if e.get("cat") == "kernel")
+        kernels = [n for _, _, n in spans]
         found = {k: sum(k + "<" in n or k + "(" in n or n == k for n in kernels)
                  for k in TRACE_KERNELS}
+        busy, end, by_name = 0.0, float("-inf"), {}
+        for a, b, name in spans:  # µs; the union of the kernels' intervals
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+            key = name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0][:60]
+            by_name[key] = by_name.get(key, 0.0) + (b - a)
+        busy /= 1e6
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         print(f"[inferer] traced apply: {wall:.4f} s against {untraced_s:.4f} s untraced "
               f"(the fastest warm call); trace {os.path.getsize(files[0]) / 2**20:.1f} MiB, "
               f"{len(events)} events, {len(kernels)} kernels; launches named {found}")
+        print(f"[inferer] its device time: busy {busy:.4f} s (the union of the kernels' "
+              f"intervals), idle share {1 - busy / untraced_s:.1%} of the untraced wall | "
+              "kernels by time: " + "; ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top))
         self.check(all(found.values()), f"the trace lacks a kernel: {found}")
         self.check(np.array_equal(traced, mask), "the traced apply's mask differs")
 
@@ -1628,6 +1668,7 @@ class Smoke:
         self.check(data_launches == {"bodymask_labels": 2, "avg_pool2": 0, "bilinear_up2": 0,
                                      "avg_pool2_bwd": 0, "bilinear_up2_bwd": 0},
                    f"data launches {data_launches}")
+        self._warm_evaluate(ev)
         params = unet.init_params(3, generator=torch.Generator().manual_seed(0))
         steps = TRAIN_EPOCHS * (TRAIN_SLICES // TRAIN_BATCH)
         opt = default_optimizer(steps, peak_lr=TRAIN_PEAK_LR)
@@ -1660,6 +1701,16 @@ class Smoke:
             self.check(np.mean(losses[-3:]) < np.mean(losses[:3]), "the loss did not fall")
             self.check(len(dice) == 2 and all(np.isfinite(dice)), f"eval Dice {dice}")
             self.check(os.path.exists(ck), "no checkpoint written")
+            with torch.inference_mode():
+                fresh = unet.UNet(res.state.params, torch.bfloat16)
+                pred = torch.cat([unet.unet_argmax(fresh, torch.from_numpy(ev[0][i:i + 8]).to(
+                    dev).unsqueeze(-1)).cpu() for i in range(0, EVAL_SLICES, 8)]).numpy()
+            shares = np.bincount(pred.ravel(), minlength=3) / pred.size
+            want_shares = np.bincount(ev[1].ravel(), minlength=3) / ev[1].size
+            print(f"[train] the fresh net after {steps} steps predicts class shares "
+                  + ", ".join(f"{c}: {v:.6f}" for c, v in enumerate(shares)) + " on the eval "
+                  "slices (labels: " + ", ".join(f"{c}: {v:.6f}" for c, v in
+                                                 enumerate(want_shares)) + ")")
 
             # The same run cut at step 8, then resumed from its checkpoint.
             ck8 = os.path.join(tmp, "train_state_step8.npz")
@@ -1713,6 +1764,34 @@ class Smoke:
         self._profile_steps(step_fn, state, im, lb)
         self._finetune_cli(params)
         self._adjoints()
+
+    def _warm_evaluate(self, ev):
+        """``evaluate`` of the crafted ``laterality_params(wf=6)``, whose
+        masks the phase's labels are, on the eval slices: bf16 on the card
+        (K2/K3 launched 4 per chunk) against float32 on the CPU."""
+        torch = self.torch
+        from lungmask_tpu_torch.models import convert
+        from lungmask_tpu_torch.train.loop import evaluate
+
+        params = self.state["params"]
+        _reset_launches()
+        t0 = time.perf_counter()
+        card = evaluate(convert.from_jax_params(params, torch.device("cuda", 0)), *ev,
+                        batch_size=TRAIN_BATCH, compute_dtype=torch.bfloat16)
+        t_card = time.perf_counter() - t0
+        launches = _launches()
+        t0 = time.perf_counter()
+        cpu = evaluate(convert.from_jax_params(params), *ev, batch_size=TRAIN_BATCH,
+                       compute_dtype=torch.float32)
+        t_cpu = time.perf_counter() - t0
+        chunks = -(-EVAL_SLICES // TRAIN_BATCH)
+        print(f"[train] evaluate of the crafted laterality_params(wf=6) before any step: macro "
+              f"Dice {card:.6f} (bf16 on the card, {t_card:.3f} s, launches {launches}) | "
+              f"{cpu:.6f} (float32 on the CPU, {t_cpu:.3f} s) | difference {abs(card - cpu):.3e}")
+        self.check(card > WARM_DICE_MIN, f"the warm start reads macro Dice {card} on the card")
+        self.check(abs(card - cpu) <= WARM_DICE_ATOL, f"card {card} against CPU {cpu}")
+        self.check(launches == {"bodymask_labels": 0, "avg_pool2": 4 * chunks,
+                                "bilinear_up2": 4 * chunks}, f"evaluate launched {launches}")
 
     def _finetune_cli(self, params):
         """``python -m lungmask_tpu_torch.train.finetune`` on the card: three
@@ -2404,6 +2483,164 @@ class Smoke:
               f"{float(np.median(times)):.3f} ms of 5 (range {min(times):.3f}-{max(times):.3f}) "
               f"({self.state['smi']})")
 
+    def _example(self, script, args, cache, tag):
+        """``examples/torch/<script>`` run as ``__main__`` with ``args`` in a
+        fresh interpreter on the card, weights from ``cache``
+        (``$LUNGMASK_TPU_CACHE``); then, in the same interpreter, the
+        launch counts of the five kernels. Returns (stdout, launches,
+        seconds)."""
+        path = os.path.join(REPO, "examples", "torch", script)
+        code = (
+            "import json, runpy, sys\n"
+            f"sys.argv = {[path] + list(args)!r}\n"
+            f"runpy.run_path({path!r}, run_name='__main__')\n"
+            "from lungmask_tpu_torch.ops.kernels import bodymask, stencil\n"
+            "print('LAUNCHES ' + json.dumps({\n"
+            "    'bodymask_labels': bodymask.bodymask_labels.launches,\n"
+            "    **{name: getattr(stencil, name).launches for name in (\n"
+            "        'avg_pool2', 'bilinear_up2', 'avg_pool2_bwd', 'bilinear_up2_bwd')}}))\n"
+        )
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                   LUNGMASK_TPU_CACHE=cache)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             cwd=REPO, env=env, timeout=600)
+        wall = time.perf_counter() - t0
+        self.check(res.returncode == 0, f"{tag} failed:\n{res.stdout[-2000:]}\n"
+                                        f"{res.stderr[-4000:]}")
+        out = res.stdout.strip().splitlines()
+        launches = json.loads(out[-1].split("LAUNCHES ", 1)[1])
+        return "\n".join(out[:-1]), launches, wall
+
+    def examples(self):
+        """The three ``examples/torch/`` scripts as a user runs them, each in
+        its own interpreter on the card at full width, the four runs at
+        once: ``segment_volume.py`` on the phantom as NIfTI (R231 = the
+        crafted ``laterality_params`` in a fresh cache) and with
+        ``--lobes`` (the fused phase's cache), ``cohort_streaming.py`` over
+        three phantom volumes, and ``finetune.py`` for one epoch from the
+        cached R231."""
+        import numpy as np
+
+        torch = self.torch
+        from lungmask_tpu_torch.io import image, loader
+        from lungmask_tpu_torch.models import convert, registry
+
+        torch.cuda.empty_cache()  # the examples' interpreters share the card
+        tmp = os.path.join(self.state["tmp"], "examples")
+        cache = os.path.join(tmp, "cache")
+        os.makedirs(cache)
+        stem = os.path.splitext(os.path.basename(registry.MODEL_URLS["R231"][0]))[0]
+        convert.save_npz(os.path.join(cache, stem + ".npz"), self.state["params"])
+        vol, mask = self.state["phantom"], self.state["mask"]
+
+        def write(arr, name):
+            path = os.path.join(tmp, name)
+            loader.write_image(image.MedicalImage(arr, spacing=(0.7, 0.7, 2.5)), path)
+            return path
+
+        src = write(vol, "ct.nii")
+        counts = (192, 160, 128)
+        cohort = [write(vol[:n], f"cohort{i}.nii") for i, n in enumerate(counts)]
+        cohort_out = os.path.join(tmp, "cohort_out")
+        data = os.path.join(tmp, "finetune_data")
+        for d in (cohort_out, data):
+            os.makedirs(d)
+        for i in range(3):  # two pairs to train, the last held out
+            sl = slice(EXAMPLE_PAIR_SLICES * i, EXAMPLE_PAIR_SLICES * (i + 1))
+            write(vol[sl], os.path.join("finetune_data", f"case{i}.nii.gz"))
+            write(mask[sl], os.path.join("finetune_data", f"case{i}_mask.nii.gz"))
+        masks = {tag: os.path.join(tmp, f"{tag}.nii.gz") for tag in ("single", "lobes")}
+        tuned = os.path.join(tmp, "tuned.npz")
+        runs = {  # tag: (script, arguments, weight cache)
+            "segment_volume": ("segment_volume.py", [src, masks["single"]], cache),
+            "segment_volume --lobes": ("segment_volume.py", [src, masks["lobes"], "--lobes"],
+                                       self.state["cache"]),
+            "cohort_streaming": ("cohort_streaming.py", [cohort_out] + cohort, cache),
+            "finetune": ("finetune.py", [data, tuned, "--epochs", "1"], cache),
+        }
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(runs)) as ex:
+            jobs = {tag: ex.submit(self._example, *run, tag) for tag, run in runs.items()}
+            done = {tag: job.result() for tag, job in jobs.items()}
+        print(f"[examples] the four runs together: {time.perf_counter() - t0:.2f} s")
+
+        chunks = -(-vol.shape[0] // CHUNK)
+        one_apply = {"bodymask_labels": 1, "avg_pool2": 4 * chunks, "bilinear_up2": 4 * chunks,
+                     "avg_pool2_bwd": 0, "bilinear_up2_bwd": 0}
+        for tag, path, ref, want in (
+                ("segment_volume", masks["single"], mask, one_apply),
+                ("segment_volume --lobes", masks["lobes"], self.state["fused_mask"],
+                 dict(one_apply, avg_pool2=8 * chunks, bilinear_up2=8 * chunks))):
+            out, launches, wall = done[tag]
+            same = bool(np.array_equal(loader.load_input_image(path).array, ref))
+            stages = " | ".join(" ".join(ln.split()) for ln in
+                                out.split("stage seconds:", 1)[-1].strip().splitlines())
+            print(f"[examples] {tag}: rc 0 in {wall:.2f} s (process start, build check, "
+                  f"{vol.shape[0]} slices) | launches {launches} | mask equal to the "
+                  f"{'fused' if 'lobes' in tag else 'inferer'} phase's: {same} | its report: "
+                  f"{stages}")
+            self.check(same, f"{tag}: the mask differs")
+            self.check(launches == want, f"{tag}: launches {launches}, expected {want}")
+
+        out, launches, wall = done["cohort_streaming"]
+        chunks = sum(-(-n // CHUNK) for n in counts)
+        want = dict(one_apply, bodymask_labels=len(counts), avg_pool2=4 * chunks,
+                    bilinear_up2=4 * chunks)
+        inferer = self.state["inferer"]
+        same = [bool(np.array_equal(
+            loader.load_input_image(os.path.join(cohort_out, f"cohort{i}_mask.nii.gz")).array,
+            inferer.apply(loader.load_input_image(path)))) for i, path in enumerate(cohort)]
+        print(f"[examples] cohort_streaming: rc 0 in {wall:.2f} s | "
+              f"{'+'.join(map(str, counts))} slices | launches {launches} | each mask equal to "
+              f"apply's: {same} | {out.splitlines()[-1]}")
+        self.check(all(same), f"cohort masks equal to apply's: {same}")
+        self.check(launches == want, f"cohort launches {launches}, expected {want}")
+
+        out, launches, wall = done["finetune"]
+        meta = convert.load_npz(tuned)[1]
+        dice = float(meta["eval_macro_dice"])
+        steps = 2 * EXAMPLE_PAIR_SLICES // TRAIN_BATCH
+        print(f"[examples] finetune: rc 0 in {wall:.2f} s (2 x {EXAMPLE_PAIR_SLICES} train + "
+              f"{EXAMPLE_PAIR_SLICES} eval slices at 256², one epoch of {steps} steps from the "
+              f"cached R231) | launches {launches} | {out.splitlines()[-1].split(';')[0]}")
+        self.check("on cuda" in out, f"finetune did not run on the card: {out}")
+        self.check(meta["finetuned_from"] == "R231", f"meta {meta}")
+        self.check(dice > WARM_DICE_MIN, f"the warm-started fine-tune reads macro Dice {dice}")
+        self.check(launches["avg_pool2_bwd"] == 4 * steps
+                   and launches["bilinear_up2_bwd"] == 4 * steps
+                   and launches["bodymask_labels"] == 3, f"finetune launches {launches}")
+
+    def layers(self):
+        """``tools/layer_bench.py`` at chunk 32 in bf16: each op of the
+        forward timed alone on the card beside its roofline bound
+        (``tools/roofline.py``), the sum of the ops beside the whole
+        chunk."""
+        torch = self.torch
+        from lungmask_tpu_torch.tools import layer_bench
+
+        torch.cuda.empty_cache()
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = layer_bench.run(CHUNK, device=torch.device("cuda", 0))
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        for line in layer_bench.report(result).splitlines():
+            print(f"[layers] {line}")
+        shares = {r["op"]: max(r["share"], r.get("conv_share", 0.0)) for r in result["ops"]}
+        top = max(shares, key=shares.get)
+        print(f"[layers] sum of the ops {result['sum_ms']:.4f} ms | layer_bench's forward "
+              f"{result['forward_ms']:.4f} ms | the unet phase's chunk (crafted weights) "
+              f"{self.state['chunk_ms']:.4f} ms | roofline {result['roofline_ms']:.4f} ms = "
+              f"{result['roofline_ms'] / result['forward_ms']:.1%} of the forward | highest "
+              f"share {shares[top]:.1%} ({top}) | launches {launches} | {wall:.2f} s "
+              f"({self.state['smi']})")
+        self.check(shares[top] <= LAYER_SHARE_MAX, f"{top} reads {shares[top]:.1%} of its bound")
+        self.check(launches["avg_pool2"] > 0 and launches["bilinear_up2"] > 0,
+                   f"layer_bench launched {launches}")
+        self.state["layers"] = result
+
+
 def main() -> int:
     import torch
 
@@ -2433,16 +2670,20 @@ def main() -> int:
             "weights": {"phantom": "kernel"},
             "devprep": {"phantom": "kernel", "inferer": "inferer", "mask": "inferer",
                         "smi": "device"},
-            "train": {"phantom": "kernel", "mask": "inferer", "smi": "device"},
+            "train": {"phantom": "kernel", "params": "unet", "mask": "inferer",
+                      "smi": "device"},
             "variants": {"phantom": "kernel", "smi": "device"},
             "mesh": {"phantom": "kernel", "mask": "inferer", "weights": "inferer",
                      "cache": "fused", "smi": "device"},
             "space": {"phantom": "kernel", "params": "unet", "mask": "inferer",
                       "weights": "inferer", "cache": "fused", "smi": "device"},
+            "examples": {"phantom": "kernel", "params": "unet", "mask": "inferer",
+                         "inferer": "inferer", "fused_mask": "fused", "cache": "fused"},
+            "layers": {"chunk_ms": "unet", "smi": "device"},
         }
         for name in ("device", "build", "kernel", "unet", "stencil", "fused", "inferer",
                      "weights", "cli", "dicom", "postdev", "cohort", "serve", "devprep", "train",
-                     "variants", "mesh", "space"):
+                     "variants", "mesh", "space", "examples", "layers"):
             missing = [(key, maker) for key, maker in needs.get(name, {}).items()
                        if key not in smoke.state]
             if missing:

@@ -163,12 +163,15 @@ def make_sharded_argmax(mesh: Mesh, compute_dtype: torch.dtype = torch.float32):
 
 
 def make_sharded_volume_argmax(mesh: Mesh, compute_dtype: torch.dtype = torch.float32,
-                               bits: int = 8):
+                               packed: bool = False, bits: int = 8):
     """``step(models, chunks (C, B, H, W)) → [uint8 slab, ...]``: the C·B
     slices split over the data axis into slabs (and, with ``space > 1``,
     each slab into its row's bands), each data row running its slab in
     sub-batches of B / data through ``models[d]``; each block's class map
-    packed on its device (``bits`` 2 or 4 per pixel, 8 dense)."""
+    packed on its device (``bits`` 2 or 4 per pixel, 8 dense;
+    ``packed=True`` is the JAX package's legacy spelling of ``bits=4``)."""
+    if packed and bits == 8:
+        bits = 4
     ndata = mesh.shape["data"]
     cache: dict = {}
 

@@ -47,6 +47,7 @@ def test_port_imports_without_jax_or_tqdm():
         "from lungmask_tpu_torch.parallel import halo, mesh, multihost, sharded\n"
         "import lungmask_tpu_torch.models, lungmask_tpu_torch.runtime\n"
         "import lungmask_tpu_torch.tools.convert_weights, lungmask_tpu_torch.utils.profiling\n"
+        "from lungmask_tpu_torch.tools import layer_bench, roofline, serve_probe\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
         "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm', 'PIL'))\n"
         "assert not bad, bad\n"
@@ -75,6 +76,26 @@ def test_cli_entry_point_without_jax(flag):
     )
     assert res.returncode == 0, res.stderr
     assert ("--modelpath" in res.stdout) if flag == "--help" else ("0.1.0" in res.stdout)
+
+
+@pytest.mark.parametrize("example", ["segment_volume", "cohort_streaming", "finetune"])
+def test_examples_without_jax(example):
+    """Each of ``examples/torch/`` imports with the machine's missing
+    packages blocked, and run with no arguments prints its usage."""
+    res = _run(
+        "import importlib.util, os, runpy\n"
+        f"path = os.path.join('examples', 'torch', '{example}.py')\n"
+        "spec = importlib.util.spec_from_file_location('example', path)\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'lungmask_tpu', 'tqdm', 'PIL'))\n"
+        "assert not bad, bad\n"
+        "sys.argv = [path]\n"
+        "runpy.run_path(path, run_name='__main__')\n"
+    )
+    assert res.returncode != 0 and "Traceback" not in res.stderr, res.stderr
+    # the usage line of its docstring, or the recipe's argparse usage
+    assert "examples/torch/" in res.stderr or "usage: finetune.py" in res.stderr, res.stderr
 
 
 def test_weight_store_and_converter_without_jax(tmp_path):

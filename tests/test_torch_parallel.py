@@ -116,6 +116,20 @@ def test_sharded_argmax_and_volume_argmax(params):
     assert torch.equal(torch.cat(dense), ref)
 
 
+@pytest.mark.parametrize("bits", [8, 2])
+def test_volume_argmax_packed_keyword(params, bits):
+    """``packed=True``, the JAX package's legacy spelling of ``bits=4``,
+    gives ``bits=4``'s bytes where ``bits`` is left at 8, and leaves an
+    explicit ``bits=2`` alone (``packed and bits == 8``)."""
+    mesh = _cpu_mesh(2)
+    models = replicate_unet(mesh, params, torch.float32)
+    chunks = torch.from_numpy(tp.blocky_slices(4, 48, 48, seed=4)[..., 0]).view(2, 2, 48, 48)
+    got = make_sharded_volume_argmax(mesh, packed=True, bits=bits)(models, chunks)
+    want = make_sharded_volume_argmax(mesh, bits=4 if bits == 8 else bits)(models, chunks)
+    assert [tuple(p.shape) for p in got] == [(2, 48, 48 * (4 if bits == 8 else bits) // 8)] * 2
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def _crafted_volume():
     """Components, holes and a three-way area tie across slab boundaries
     (at 8 for two slabs; 4, 8, 12 for four; 6, 11 for three)."""

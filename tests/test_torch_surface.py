@@ -9,6 +9,12 @@ the same path (a ``def``, ``class``, assignment or import), or a row in
 none. A row whose name has since gained a namesake, or whose name the JAX
 package no longer defines, fails too, so the table stays the exact list of
 differences.
+
+Keywords likewise: every parameter that a JAX public function, or a public
+class's ``__init__`` or public method, takes by name must be a parameter of
+the port's namesake (or the namesake takes ``**kwargs``), unless a row of
+:data:`KEYWORD_TABLE` names it with the reason. A row must name exactly the
+keywords its namesake lacks: one no longer needed fails.
 """
 
 import ast
@@ -64,6 +70,24 @@ TABLE = {
         NOT_PORTED, "the jit-traceable preprocessing of XLA programs; no JAX path calls it"),
 }
 
+_TAKES_A_UNET = ("the port takes a UNet module, which holds the weights cast to its compute "
+                 "dtype, where JAX takes the params tree and the compute options")
+
+# "<module path>:<function or Class.method>" → (keywords the port lacks, reason).
+KEYWORD_TABLE = {
+    "models/unet.py:init_params": (
+        ("key", "dtype"), "draws from a torch.Generator (generator=), float32 on the CPU, "
+                          "where JAX takes a PRNG key and a dtype"),
+    "models/unet.py:unet_argmax": (("params", "compute_dtype", "precision"), _TAKES_A_UNET),
+    "models/unet.py:unet_logits": (("params", "compute_dtype", "precision"), _TAKES_A_UNET),
+    "runtime/engine.py:volume_argmax": (("params", "compute_dtype"), _TAKES_A_UNET),
+    "runtime/engine.py:volume_argmax_packed2": (("params", "compute_dtype"), _TAKES_A_UNET),
+    "runtime/engine.py:volume_argmax_pair_packed": (
+        ("params_a", "params_b", "compute_dtype"), _TAKES_A_UNET),
+    "runtime/serve.py:serve_forever": (
+        ("warmup",), "the CLI's --warmup (cli._warmup) is the one warm-up; the lane has none"),
+}
+
 
 def public_names(path: str) -> set:
     """Public top-level ``def``/``class`` names and ``__all__`` entries."""
@@ -99,6 +123,55 @@ def bound_names(path: str) -> set:
         elif isinstance(node, (ast.Import, ast.ImportFrom)):
             names.update((a.asname or a.name).split(".")[0] for a in node.names)
     return names
+
+
+def keywords(path: str) -> dict:
+    """``name`` or ``Class.method`` → (the parameters it takes by name,
+    whether it takes ``**kwargs``), for each top-level function and each
+    class's ``__init__`` and public methods; ``self``/``cls`` dropped,
+    positional-only parameters left out."""
+    if not os.path.exists(path):
+        return {}
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+
+    def named(fn, method):
+        names = [a.arg for a in fn.args.args + fn.args.kwonlyargs]
+        if method and names and names[0] in ("self", "cls"):
+            names = names[1:]
+        return tuple(names), fn.args.kwarg is not None
+
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = named(node, False)
+        elif isinstance(node, ast.ClassDef):
+            for m in node.body:
+                if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)) and (
+                        m.name == "__init__" or not m.name.startswith("_")):
+                    out[f"{node.name}.{m.name}"] = named(m, True)
+    return out
+
+
+def missing_keywords(jax_root: str, port_root: str, rel: str) -> dict:
+    """Each public function or method of ``jax_root/rel`` whose namesake in
+    ``port_root/rel`` lacks some of its keywords → those keywords."""
+    theirs = keywords(os.path.join(port_root, rel))
+    out = {}
+    for name, (names, _) in keywords(os.path.join(jax_root, rel)).items():
+        if name.split(".")[0].startswith("_") or name not in theirs or theirs[name][1]:
+            continue
+        lacks = tuple(k for k in names if k not in theirs[name][0])
+        if lacks:
+            out[name] = lacks
+    return out
+
+
+def keyword_gaps(jax_root: str, port_root: str, rel: str, table: dict) -> list:
+    """``name(keyword)`` for each keyword a namesake lacks that no row of
+    ``table`` names."""
+    return sorted(f"{name}({k})" for name, lacks in
+                  missing_keywords(jax_root, port_root, rel).items()
+                  for k in lacks if k not in table.get(f"{rel}:{name}", ((), ""))[0])
 
 
 def gaps(jax_root: str, port_root: str, rel: str, table: dict) -> list:
@@ -143,6 +216,57 @@ def test_every_row_is_needed_and_its_counterpart_exists(row):
             f"{row}: lungmask_tpu_torch/{what} does not exist")
     else:
         assert what and "\n" not in what
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_every_keyword_has_a_namesake_or_a_row(rel):
+    missing = keyword_gaps(JAX_ROOT, PORT_ROOT, rel, KEYWORD_TABLE)
+    assert not missing, (
+        f"lungmask_tpu/{rel}: the port's namesakes lack the keywords {missing}; "
+        "take them or add a row to KEYWORD_TABLE")
+
+
+@pytest.mark.parametrize("row", sorted(KEYWORD_TABLE))
+def test_every_keyword_row_is_needed(row):
+    rel, name = row.split(":")
+    kws, reason = KEYWORD_TABLE[row]
+    assert reason and "\n" not in reason
+    lacks = missing_keywords(JAX_ROOT, PORT_ROOT, rel).get(name, ())
+    assert tuple(sorted(lacks)) == tuple(sorted(kws)), (
+        f"{row}: the port's namesake lacks {lacks}, the row names {kws}; correct the row")
+
+
+def test_a_keyword_with_neither_fails(tmp_path):
+    """The keyword check itself: a keyword a namesake lacks is reported
+    (functions, ``__init__`` and public methods; positional-only
+    parameters, private methods and names without a namesake are not
+    checked), ``**kwargs`` takes any, and a row clears the keywords it
+    names and no other."""
+    jax_root, port_root = tmp_path / "jax", tmp_path / "port"
+    jax_root.mkdir()
+    port_root.mkdir()
+    (jax_root / "m.py").write_text(
+        "def f(a, /, b, c=1, *, d=2): pass\n"
+        "def g(x, y): pass\n"
+        "def alone(z): pass\n"
+        "class C:\n"
+        "    def __init__(self, p, q=0): pass\n"
+        "    def run(self, r, s=0): pass\n"
+        "    def _hidden(self, t): pass\n")
+    (port_root / "m.py").write_text(
+        "def f(b, d=2): pass\n"
+        "def g(x, **kw): pass\n"
+        "class C:\n"
+        "    def __init__(self, p): pass\n"
+        "    def run(self, r): pass\n"
+        "    def _hidden(self): pass\n")
+    assert keyword_gaps(str(jax_root), str(port_root), "m.py", {}) == [
+        "C.__init__(q)", "C.run(s)", "f(c)"]
+    table = {"m.py:f": (("c",), "a reason"), "m.py:C.run": (("r",), "a stale reason")}
+    assert keyword_gaps(str(jax_root), str(port_root), "m.py", table) == [
+        "C.__init__(q)", "C.run(s)"]
+    assert missing_keywords(str(jax_root), str(port_root), "m.py") == {
+        "f": ("c",), "C.__init__": ("q",), "C.run": ("s",)}
 
 
 def test_a_name_with_neither_fails(tmp_path):
