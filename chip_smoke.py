@@ -5,10 +5,19 @@
 
 Builds every kernel of the port from the sources in this checkout (K1, the
 bodymask; K2 and K3, the U-Net's pooling and upsampling, and their adjoints
-K2ᵀ and K3ᵀ; all nvcc builds started together), checks each against its
-plain PyTorch version on the card, then drives the port's paths at the
-production width (U-Net wf=6) on a 192-slice 512² lung phantom made from a
-seed, with crafted weights:
+K2ᵀ and K3ᵀ; K4, the U-Net's bf16 conv stage; all nvcc builds started
+together), checks each against its plain PyTorch version on the card, then
+drives the port's paths at the production width (U-Net wf=6) on a
+192-slice 512² lung phantom made from a seed, with crafted weights:
+
+* K4 at each of the U-Net's 22 conv stages at chunk 32 (18 3×3 with ReLU +
+  affine, 4 1×1 projections bias only; ``convstage`` phase): the share of
+  its bf16 outputs a step from the plain version (≤ 0.1%; an outlier, where
+  the affine cancels, within 2^-20 of its float32 scale), timed in turns
+  with the plain version and with the cuDNN conv + float32 epilogue it
+  replaced (``library_ms``); and in the unet phase one chunk's forward
+  through K4 against the same forward through K4's plain version (argmax
+  agreement ≥ 0.999, 22 launches);
 
 * the fused two-model path — ``LMInferer(modelname="LTRCLobes",
   fillmodel="R231")`` and the CLI's ``--modelname LTRCLobes_R231``, both
@@ -16,7 +25,7 @@ seed, with crafted weights:
 * the main path — ``LMInferer(...).apply`` and the ``lungmask-torch INPUT
   OUTPUT`` CLI with their defaults (hybrid preprocessing, bf16 U-Net, exact
   host postprocessing); one ``apply`` with ``$LUNGMASK_TPU_TRACE_DIR`` set,
-  whose ``torch.profiler`` trace must name K1, K2 and K3 (the union of its
+  whose ``torch.profiler`` trace must name K1, K2, K3 and K4 (the union of its
   kernels' intervals gives the device's busy time and idle share, and the
   kernels with the most time are printed); and, as readings,
   the host-heap policy off (``LUNGMASK_TPU_NO_MALLOC_TUNING=1
@@ -27,7 +36,7 @@ seed, with crafted weights:
   (``synthetic.reference_state_dict(3)``) fetched by ``LMInferer("R231")``
   through a ``file://`` URL into a fresh ``$LUNGMASK_TPU_CACHE``, its
   sha256 checked, converted and cached as ``.npz`` (seconds of each step
-  printed); its ``apply`` (K1/K2/K3 launched 1/24/24) equal to
+  printed); its ``apply`` (K1/K2/K3/K4 launched 1/24/24/132) equal to
   ``LMInferer(modelpath=<the .pth>)``'s; the ``.npz`` reloaded with no
   fetch; one-byte-mutated copies, fetched and placed, refused with
   "Checksum mismatch";
@@ -38,7 +47,7 @@ seed, with crafted weights:
 * DICOM — the 192-slice phantom written as an uncompressed series by the
   port's writer, through ``load_input_image(SERIES_DIR)`` and ``apply`` and
   through the CLI to ``.nii.gz`` and to ``.dcm``, every mask equal to
-  ``apply``'s on the same array (K1/K2/K3 launched 1/24/24); a 32-slice RLE
+  ``apply``'s on the same array (K1/K2/K3/K4 launched 1/24/24/132); a 32-slice RLE
   series; one slice in each transfer syntax the port can encode without
   Pillow or CharLS, and the two committed JPEG 2000 / JPEG-LS fixtures
   (``tests/data/torch_port/``), each decoded bit-exactly (the lossy DCT
@@ -50,15 +59,16 @@ seed, with crafted weights:
 * the serve lane — ``make_server`` in this process, three NIfTI uploads from
   two client threads and one zipped DICOM series answered with ``out=.dcm``,
   every response equal to ``apply``'s;
-* device preprocessing — ``LMInferer(preprocessing="device").apply``, K1/K2/K3
-  launched 1/24/24 times, its boxes equal to the hybrid mode's, its mask's
+* device preprocessing — ``LMInferer(preprocessing="device").apply``,
+  K1/K2/K3/K4 launched 1/24/24/132 times, its boxes equal to the hybrid mode's, its mask's
   agreement with the hybrid mask printed, ``apply`` timed in turns with the
   hybrid mode;
 * fine-tuning — ``train.fit`` of a fresh wf=6 U-Net (``unet.init_params``,
   seed 0) in bf16 at batch 8 on 256² slices made on the card by
   ``slices_from_pair`` (phantom[:64] to train, phantom[64:96] to evaluate,
   the exact-path mask as labels): 16 steps, the loss must fall, each step
-  launching K2/K3/K2ᵀ/K3ᵀ 4/4/4/4 times; a resume from the step-8
+  launching K2/K3/K2ᵀ/K3ᵀ 4/4/4/4 times (K4 0: the train forward under
+  autograd keeps torch's convolution; the evaluations 22 per chunk); a resume from the step-8
   checkpoint under ``cudnn.deterministic`` against the uninterrupted run;
   K2ᵀ and K3ᵀ bit-equal to their plain adjoints at the train step's shapes
   (the stencil phase holds K2 and K3 there too); train-step time, slices/s,
@@ -66,15 +76,15 @@ seed, with crafted weights:
   lungmask_tpu_torch.train.finetune`` entry point on phantom NIfTI pairs,
   its weights applied by ``LMInferer``; before any step, ``evaluate`` of the
   crafted ``laterality_params(wf=6)`` (whose masks the labels are) on the
-  eval slices, bf16 on the card (K2/K3 4 per chunk), must read a macro Dice
+  eval slices, bf16 on the card (K2/K3/K4 4/4/22 per chunk), must read a macro Dice
   above 0.5 and within 1e-3 of the same call on the CPU at float32; after
   the fresh fit, the class shares the fresh net predicts there;
 * the U-Net variants — ``residual``, ``upconv`` and both, at production
   width from seeded reference-layout state dicts
   (``synthetic.reference_state_dict``): on one 32-slice chunk, GPU f32
   logits of its first 8 slices against CPU f32, bf16 argmax against f32
-  on all 32, K2/K3 launches per
-  forward (4/4, 4/0 for upconv), and ``LMInferer(modelpath=<.pth>)`` on the
+  on all 32, K2/K3/K4 launches per
+  forward (4/4/31 residual, 4/0/18 upconv, 4/0/27 both; K4 0 in f32), and ``LMInferer(modelpath=<.pth>)`` on the
   192-slice phantom;
 * the device mesh — ``LMInferer(mesh=)`` over ``make_mesh()`` (every card)
   and over a two-way data mesh on one card (``[cuda:0, cuda:0]``, batch 64:
@@ -101,8 +111,8 @@ seed, with crafted weights:
   largest) and the banded step's time;
 * the examples — ``examples/torch/segment_volume.py`` on the phantom as
   NIfTI (R231 = the crafted weights, placed in a fresh
-  ``$LUNGMASK_TPU_CACHE``; its mask equal to the inferer phase's, K1/K2/K3
-  launched 1/24/24) and with ``--lobes`` (the fused phase's cache; equal to
+  ``$LUNGMASK_TPU_CACHE``; its mask equal to the inferer phase's, K1/K2/K3/K4
+  launched 1/24/24/132) and with ``--lobes`` (the fused phase's cache; equal to
   the fused phase's mask), ``cohort_streaming.py`` over three phantom
   volumes (each mask equal to ``apply``'s) and ``finetune.py`` for one
   epoch on two 16-slice phantom pairs and a held-out one, warm-started from
@@ -111,9 +121,9 @@ seed, with crafted weights:
   counts;
 * the U-Net's layers — ``lungmask_tpu_torch/tools/layer_bench.py`` at chunk
   32 in bf16: each op of the forward timed alone (CUDA events) beside its
-  bound from ``tools/roofline.py`` (no share above 105%), the conv's and
-  its float32 epilogue's times apart, the sum of the ops beside the whole
-  chunk.
+  bound from ``tools/roofline.py`` (no share above 105%), each conv stage
+  as K4 beside the cuDNN conv and its float32 epilogue, the sum of the ops
+  beside the whole chunk.
 
 Each path's calls run with every kernel's launch count set to 0 just before
 them and read just after. The stencils' times at the U-Net's bf16 shapes
@@ -128,11 +138,14 @@ cores), the H100 SXM's published peaks. An adjoint's library time is one
 call of torch's own backward op for the same function
 (``aten.avg_pool2d_backward``, ``aten.upsample_bilinear2d_backward``).
 The kernels line gives K2 and K3 per 32-slice inference chunk and K2ᵀ and
-K3ᵀ per train step of batch 8, each summed over the U-Net's four shapes.
+K3ᵀ per train step of batch 8, each summed over the U-Net's four shapes,
+and K4 per chunk summed over its 22 stages (bound: the larger of its bytes
+over 3.35 TB/s and its products over the tensor cores' 989 TFLOP/s bf16,
+its float32 epilogue over 67 TFLOP/s; library: the cuDNN composition).
 
-Phases: device, build, kernel, unet, stencil, fused, inferer, weights, cli,
-dicom, postdev, cohort, serve, devprep, train, variants, mesh, space,
-examples, layers; each
+Phases: device, build, kernel, unet, stencil, convstage, fused, inferer,
+weights, cli, dicom, postdev, cohort, serve, devprep, train, variants, mesh,
+space, examples, layers; each
 prints its results on its own lines, and fails if it left torch's current CUDA device
 changed (the launchers must restore the caller's device). The second-to-last line is a JSON
 object describing the kernels; the last line is ``{"ok": true, "device":
@@ -166,6 +179,11 @@ K3_REPLACES = "lungmask_tpu/ops/pallas/stencil.py:126"
 # transposes of the U-Net's _avg_pool2 and _bilinear_up2.
 K2T_REPLACES = "lungmask_tpu/models/unet.py:176"
 K3T_REPLACES = "lungmask_tpu/models/unet.py:191"
+# K4 has no Pallas kernel to replace: XLA's bf16 convolution with a float32
+# accumulator (_conv_acc32, unet.py:61-81) and its fused epilogue (the bias,
+# :107-114; ReLU, affine and the cast, :167-172).
+K4_SOURCE = "lungmask_tpu_torch/csrc/conv_stage.cu"
+K4_REPLACES = "lungmask_tpu/models/unet.py:61"
 CHUNK = 32  # the engine's default batch: 192 slices are 6 chunks
 # The U-Net's stencil inputs per chunk at wf=6 (NHWC): its four pools and
 # its four upsamples.
@@ -182,10 +200,11 @@ TILE_SHAPES = [(2, 37, 70, 24), (1, 5, 129, 136), (1, 1, 1, 8), (1, 1, 3, 5)]
 ADJOINT_TILE_SHAPES = [(2, 19, 13, 264), (1, 10, 9, 520)]
 VOLUME96_SHAPES = [(2, 6, 6, 1024), (2, 12, 12, 512), (2, 24, 24, 256), (2, 48, 48, 128)]
 K1_BATCHES = (1, 192, 193)
-FORWARD = ("bodymask_labels", "avg_pool2", "bilinear_up2")
+FORWARD = ("bodymask_labels", "avg_pool2", "bilinear_up2", "conv_stage")
 BACKWARD = ("avg_pool2_bwd", "bilinear_up2_bwd")
 # The CUDA kernels of the main path as a trace names them.
-TRACE_KERNELS = ("bodymask_kernel", "avg_pool2_kernel", "bilinear_up2_kernel")
+TRACE_KERNELS = ("bodymask_kernel", "avg_pool2_kernel", "bilinear_up2_kernel",
+                 "conv_stage_kernel")
 HEAP_CALLS = 3  # warm applies per process of the heap-policy reading
 HEAP_PROBE_MB = 256  # the first-touch probe's buffer, inside the 384 MB pre-faulted
 TRAIN_BATCH = 8
@@ -195,6 +214,13 @@ TRAIN_POOL_SHAPES = [(TRAIN_BATCH,) + s[1:] for s in POOL_SHAPES]
 TRAIN_UP_SHAPES = [(TRAIN_BATCH,) + s[1:] for s in UP_SHAPES]
 # The shapes whose bf16 times are summed: per inference chunk, per train step.
 TIMED = {"chunk": POOL_SHAPES + UP_SHAPES, "step": TRAIN_POOL_SHAPES + TRAIN_UP_SHAPES}
+# K4 launches per bf16 inference forward: 2 per plain conv block (10 down, 8
+# up) and the 4 projections; see _k4_per_forward for the variants.
+K4_PER_FORWARD = 22
+# K4 against its plain version: the share of bf16 outputs a step apart, and
+# an outlier's distance over its float32 arithmetic's scale
+# (conv_stage.agreement, conv_stage.SCALE_RTOL).
+K4_MAX_DIFFERING = 1e-3
 TRAIN_SLICES, EVAL_SLICES = 64, 32  # phantom[:64] to train, phantom[64:96] to evaluate
 TRAIN_EPOCHS = 2  # 16 steps
 TRAIN_PEAK_LR = 1e-3  # a fresh net: default_optimizer's 1e-4 is a fine-tuning rate
@@ -224,6 +250,8 @@ REPS = 20  # back-to-back launches per CUDA-event pair and per profiler group
 HOST_CALLS = 200  # wrapper calls per reading of the host's cost
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM, dense bf16 on the tensor cores
+K4_FORWARD_AGREEMENT = 0.999  # the K4 forward's argmax against the plain stages' forward
 UNET_LOGIT_ATOL, UNET_LOGIT_RTOL = 1e-3, 1e-4  # GPU f32 (TF32 off) vs CPU f32
 BF16_MIN_AGREEMENT = 0.98  # GPU bf16 argmax vs GPU f32, a gross check
 LUNG_MIN_FRACTION = 0.95  # share of each phantom lung given its class
@@ -269,6 +297,15 @@ def _median_ms(torch, fn, runs: int = 10, reps: int = REPS) -> float:
 def _bound(nbytes: float, ops: float):
     """(bound ms, "bytes" or "operations"): the larger of the two times."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bound_k4(nbytes: float, tensor_ops: float, f32_ops: float):
+    """K4's (bound ms, "bytes" or "operations"): the largest of its bytes
+    over 3.35 TB/s, its bf16 products and sums over the tensor cores' 989
+    TFLOP/s and its float32 epilogue over 67 TFLOP/s."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(tensor_ops / BF16_TENSOR_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -364,7 +401,12 @@ def _ptxas_lines(report: str) -> list:
         m = re.search(r"entry function '.*?(bodymask_kernel|avg_pool2_bwd_kernel|"
                       r"bilinear_up2_bwd_kernel|avg_pool2_kernel|bilinear_up2_kernel)"
                       r"(?:I(13__nv_bfloat16|f)Li(\d+)E)?", ln)
-        if m:
+        k4 = re.search(r"entry function '.*?conv_stage_kernelILi(\d+)ELb([01])ELi(\d)E", ln)
+        if k4:  # <BN, vector path, epilogue>
+            spill = "spills not reported"
+            name = f"conv_stage_kernel<{k4.group(1)},{'vec' if k4.group(2) == '1' else 'scalar'}," \
+                   f"{('bias', 'relu_affine', 'bias_f32')[int(k4.group(3))]}>"
+        elif m:
             spill = "spills not reported"
             name = m.group(1) + (f"<{'bf16' if m.group(2) != 'f' else 'f32'},{m.group(3)}>"
                                  if m.group(2) else "")
@@ -445,16 +487,37 @@ def _write_series(img, directory: str) -> None:
 
 
 def _kernels():
-    """The launch-counted wrappers: K1, K2, K3, K2ᵀ, K3ᵀ."""
-    from lungmask_tpu_torch.ops.kernels import bodymask, stencil
+    """The launch-counted wrappers: K1, K2, K3, K4, K2ᵀ, K3ᵀ."""
+    from lungmask_tpu_torch.ops.kernels import bodymask, conv_stage, stencil
 
     return {
         "bodymask_labels": bodymask.bodymask_labels,
         "avg_pool2": stencil.avg_pool2,
         "bilinear_up2": stencil.bilinear_up2,
+        "conv_stage": conv_stage.conv_stage,
         "avg_pool2_bwd": stencil.avg_pool2_bwd,
         "bilinear_up2_bwd": stencil.bilinear_up2_bwd,
     }
+
+
+def _k4_per_forward(residual: bool = False, upconv: bool = False, depth: int = 5) -> int:
+    """K4 launches in one bf16 inference forward of the U-Net: each conv
+    block's two stages (a residual down block's second conv and its 1×1
+    path too), each up block's projection (none with ``upconv``) and, in
+    the residual variant, the 1×1 path of each up block's input."""
+    return depth * (3 if residual else 2) + (depth - 1) * (2 + (not upconv) + residual)
+
+
+def _want(k1: int, forwards: int, k4_forwards: int = None, residual: bool = False,
+          upconv: bool = False, steps: int = 0) -> dict:
+    """The launches of ``forwards`` forwards (K2 4 each, K3 4 unless
+    ``upconv``), of which ``k4_forwards`` (all by default) in bf16
+    inference, and ``steps`` train steps' backwards (K2ᵀ, K3ᵀ 4 each)."""
+    k4 = forwards if k4_forwards is None else k4_forwards
+    return {"bodymask_labels": k1, "avg_pool2": 4 * forwards,
+            "bilinear_up2": 0 if upconv else 4 * forwards,
+            "conv_stage": k4 * _k4_per_forward(residual, upconv),
+            "avg_pool2_bwd": 4 * steps, "bilinear_up2_bwd": 4 * steps}
 
 
 def _reset_launches() -> None:
@@ -462,7 +525,7 @@ def _reset_launches() -> None:
         fn.launches = 0
 
 
-def _launches(names=FORWARD) -> dict:
+def _launches(names=FORWARD + BACKWARD) -> dict:
     kernels = _kernels()
     return {name: kernels[name].launches for name in names}
 
@@ -512,6 +575,7 @@ class Smoke:
         from lungmask_tpu_torch.io import codecs
         from lungmask_tpu_torch.ops import native
         from lungmask_tpu_torch.ops.kernels import bodymask as k1
+        from lungmask_tpu_torch.ops.kernels import conv_stage as k4
         from lungmask_tpu_torch.ops.kernels import stencil
 
         def timed(fn):
@@ -521,15 +585,15 @@ class Smoke:
 
         # One compiler per source, all started together.
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=4) as ex:
-            jobs = [ex.submit(timed, fn) for fn in (k1.build, stencil.build, native.native_loaded,
-                                                     codecs.get_lib)]
-            (_, t_k1), (_, t_st), (loaded, t_host), (codec_lib, t_codec) = [
+        with ThreadPoolExecutor(max_workers=5) as ex:
+            jobs = [ex.submit(timed, fn) for fn in (k1.build, stencil.build, k4.build,
+                                                     native.native_loaded, codecs.get_lib)]
+            (_, t_k1), (_, t_st), (_, t_k4), (loaded, t_host), (codec_lib, t_codec) = [
                 job.result() for job in jobs]
         wall = time.perf_counter() - t0
-        print(f"[build] K1 nvcc {t_k1:.2f} s | K2+K3 nvcc {t_st:.2f} s | host core g++ "
-              f"{t_host:.2f} s | DICOM codecs g++ {t_codec:.2f} s | all, in parallel, "
-              f"{wall:.2f} s")
+        print(f"[build] K1 nvcc {t_k1:.2f} s | K2+K3 nvcc {t_st:.2f} s | K4 nvcc {t_k4:.2f} s | "
+              f"host core g++ {t_host:.2f} s | DICOM codecs g++ {t_codec:.2f} s | all, in "
+              f"parallel, {wall:.2f} s")
         print(f"[build] DICOM codec library: {codec_lib._name if codec_lib else None}")
         # The codecs fall back to pure-Python RLE without a compiler; a failed
         # build must not hide behind that fallback.
@@ -538,7 +602,7 @@ class Smoke:
                    == build_dir, f"the native DICOM codec library is not in {build_dir}")
         from lungmask_tpu_torch.ops.kernels import _nvcc
 
-        for lib in ("libbodymask", "libstencil"):
+        for lib in ("libbodymask", "libstencil", "libconvstage"):
             for line in _ptxas_lines(_nvcc.ptxas_report(lib)):
                 print(f"[build] ptxas {line}")
         self.check(loaded, "the native host core did not build or load")
@@ -634,6 +698,7 @@ class Smoke:
             a32 = unet.unet_argmax(gpu32, x)
             a16 = unet.unet_argmax(gpu16, x)
             agree = float((a32 == a16).float().mean())
+            self._k4_forward(unet, convert, gpu16, rnd, x)
             classes = sorted(int(c) for c in torch.unique(a32))
             ms16 = _median_ms(torch, lambda: unet.unet_argmax(gpu16, x), 5, reps=1)
             ms32 = _median_ms(torch, lambda: unet.unet_argmax(gpu32, x), 5, reps=1)
@@ -644,6 +709,107 @@ class Smoke:
         self.check(agree >= BF16_MIN_AGREEMENT, f"bf16 agreement {agree} < {BF16_MIN_AGREEMENT}")
         self.check(classes == [0, 1, 2], f"expected classes 0-2, got {classes}")
         self.state["chunk_ms"] = ms16
+
+    def _k4_forward(self, unet, convert, crafted, rnd, x):
+        """The bf16 forward of one 32-slice chunk of the phantom through K4
+        against the same forward with K4's plain version in its place
+        (float32 convolutions on the card): argmax agreement and the
+        largest logit difference, crafted and random weights."""
+        torch = self.torch
+        from lungmask_tpu_torch.ops.kernels import conv_stage as k4
+
+        random16 = unet.UNet(convert.from_jax_params(rnd, x.device), torch.bfloat16).eval()
+        for name, model in (("crafted", crafted), ("random", random16)):
+            k4.conv_stage.launches = 0
+            fast = model(x)
+            launches = k4.conv_stage.launches
+            kernel = k4.conv_stage
+            k4.conv_stage = k4.conv_stage_reference  # the plain stages, for this reading only
+            try:
+                plain = model(x)
+            finally:
+                k4.conv_stage = kernel
+            agree = float((fast.argmax(-1) == plain.argmax(-1)).float().mean())
+            print(f"[unet] {name} weights, 32 slices 256² bf16: K4 forward ({launches} launches) "
+                  f"against the plain stages' forward on the card: argmax agreement "
+                  f"{agree:.6f}, max |dlogit| {float((fast - plain).abs().max()):.3e} of max "
+                  f"|logit| {float(plain.abs().max()):.3e}")
+            self.check(launches == K4_PER_FORWARD, f"K4 launched {launches} times in a forward")
+            self.check(agree >= K4_FORWARD_AGREEMENT, f"{name}: K4 forward agreement {agree}")
+
+    def convstage(self):
+        """K4 at each of the U-Net's 22 conv stages at chunk 32 (the conv
+        rows of ``tools/roofline.py``: 18 3×3 with ReLU + affine, 4 1×1 bias
+        only) on seeded inputs: against its plain version (share of outputs a
+        bf16 step apart, outliers within ``conv_stage.SCALE_RTOL`` of their
+        scale), and timed in turns with the plain version and the cuDNN
+        composition the port ran before it (``library_ms``). That
+        composition's outliers, read the same way, must exceed the limit."""
+        torch = self.torch
+        from lungmask_tpu_torch.ops.kernels import conv_stage as k4
+        from lungmask_tpu_torch.tools import roofline
+
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        sums = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
+        err, by_all, worst = 0.0, set(), {"max_steps": 0, "differing": 0.0, "worst": 0.0}
+        old_worst = {"differing": 0.0, "worst": 0.0}
+        for op in (o for o in roofline.build(CHUNK) if o.kind == "conv"):
+            def uniform(*shape, lo=-1.0, hi=1.0):
+                return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+            x = torch.randn(op.n, op.h, op.w, op.cin, generator=gen, device=dev).to(torch.bfloat16)
+            bound = (op.k * op.k * op.cin) ** -0.5
+            w = (uniform(op.cout, op.k, op.k, op.cin) * bound).to(torch.bfloat16)
+            b = uniform(op.cout) * bound
+            aff = (uniform(op.cout, lo=0.5, hi=1.5), uniform(op.cout, lo=-0.2, hi=0.2)) \
+                if op.k == 3 else (None, None)
+            pad = (op.k // 2, op.k // 2)
+            got = k4.conv_stage(x, w, b, *aff, padding=pad)
+            want = k4.conv_stage_reference(x, w, b, *aff, padding=pad)
+            torch.cuda.synchronize()
+            scale = k4.rounding_scale(x, w, b, *aff, pad)
+            a = k4.agreement(got, want, scale)
+            old = k4.agreement(k4.conv_stage_cudnn(x, w, b, *aff, padding=pad), want, scale)
+            e = float((got.float() - want.float()).abs().max())
+            del want, scale
+            err = max(err, e)
+            worst = {k: max(worst[k], a[k]) for k in worst}
+            old_worst = {k: max(old_worst[k], old[k]) for k in old_worst}
+            self.check(a["differing"] <= K4_MAX_DIFFERING and a["worst"] <= k4.SCALE_RTOL,
+                       f"K4 differs from its plain version at {op.name}: {a}")
+            med = _in_turns(torch, {
+                "kernel": lambda: k4.conv_stage(x, w, b, *aff, padding=pad),
+                "plain": lambda: k4.conv_stage_reference(x, w, b, *aff, padding=pad),
+                "library": lambda: k4.conv_stage_cudnn(x, w, b, *aff, padding=pad)}, runs=3)
+            vectors = op.cout * (3 if op.k == 3 else 1)
+            nbytes = (x.numel() + w.numel() + got.numel()) * 2 + vectors * 4
+            bound_ms, by = _bound_k4(nbytes, op.flops, got.numel() * (4 if op.k == 3 else 1))
+            by_all.add(by)
+            for k in ("kernel", "plain", "library"):
+                sums[k] += med[k]
+            sums["bound"] += bound_ms
+            print(f"[convstage] {op.name}: {a['differing']:.4%} of outputs a bf16 step from the "
+                  f"plain version, outliers {a['outliers']:.2e} at most {a['worst']:.2e} of their "
+                  f"scale, max_abs_err {e:.3e} | K4 {med['kernel']:.4f} ms "
+                  f"({op.flops / med['kernel'] / 1e9:.1f} TFLOP/s) | bound {bound_ms:.4f} ms "
+                  f"({by}), share {bound_ms / med['kernel']:.1%} | plain {med['plain']:.4f} ms | "
+                  f"cuDNN + float32 epilogue {med['library']:.4f} ms, {old['differing']:.2%} "
+                  f"a step off, outliers at most {old['worst']:.2e} of their scale")
+            del x, w, got
+        print(f"[convstage] per 32-slice bf16 chunk (the 22 stages): K4 {sums['kernel']:.4f} ms | "
+              f"bound {sums['bound']:.4f} ms, share {sums['bound'] / sums['kernel']:.1%} | plain "
+              f"{sums['plain']:.4f} ms | cuDNN + float32 epilogue {sums['library']:.4f} ms | at "
+              f"worst {worst['differing']:.4%} of a stage's outputs a step apart, outliers at most "
+              f"{worst['worst']:.2e} of their scale; the cuDNN composition up to "
+              f"{old_worst['differing']:.2%} a step off, outliers up to {old_worst['worst']:.2e} "
+              f"(limit {k4.SCALE_RTOL:.2e}; medians of 6 CUDA-event runs of {REPS} launches "
+              f"each, in turns; {self.state['smi']})")
+        self.check(old_worst["worst"] > k4.SCALE_RTOL,
+                   f"the outlier limit passes the cuDNN composition: {old_worst}")
+        self.state["k4"] = {"max_abs_err": err, "ms": sums["kernel"], "plain_ms": sums["plain"],
+                            "bound_ms": sums["bound"], "bound_by": "+".join(sorted(by_all)),
+                            "library_ms": sums["library"]}
 
     def stencil(self):
         import torch.nn.functional as F
@@ -798,9 +964,9 @@ class Smoke:
         self.state["fused_mask"] = m
         self.check(bool(m.any()), "the fused mask is empty")
         self.check(set(labels) <= set(range(6)), f"labels {labels}")
-        want = {"bodymask_labels": 2, "avg_pool2": 96, "bilinear_up2": 96}
-        self.check(launches == want, f"launches {launches}, expected {want} (6 chunks x 4 x 2 "
-                                     "models of K2 and K3, one K1 per call)")
+        want = _want(2, 24)
+        self.check(launches == want, f"launches {launches}, expected {want} (6 chunks x 2 "
+                                     "models of K2/K3 4 and K4 22 per forward, one K1 per call)")
         base = LMInferer(modelname="LTRCLobes", tqdm_disable=True).apply(vol)
         fill = LMInferer(modelname="R231", tqdm_disable=True).apply(vol)
         ref = native.fused_finish(base, fill)
@@ -859,8 +1025,6 @@ class Smoke:
                   f"{note} | stage s: {stages}")
         launches = _launches()
         self.state["launches"] = launches
-        self.check(_launches(BACKWARD) == {k: 0 for k in BACKWARD},
-                   f"inference launched an adjoint: {_launches(BACKWARD)}")
         h, w = vol.shape[1:]
         yy, xx = np.mgrid[0:h, 0:w]
         lung_l = ((yy - h / 2) / (h * 0.2)) ** 2 + ((xx - w * 0.35) / (w * 0.12)) ** 2 < 1
@@ -876,9 +1040,9 @@ class Smoke:
         self.state["mask"] = m
         self.check(set(labels) <= {0, 1, 2}, f"labels {labels}")
         self.check(left >= LUNG_MIN_FRACTION and right >= LUNG_MIN_FRACTION, "lung fractions")
-        want = {"bodymask_labels": 3, "avg_pool2": 72, "bilinear_up2": 72}
+        want = _want(3, 18)
         self.check(launches == want, f"launches {launches}, expected {want} (per call one K1 "
-                                     "and 6 chunks x 4 of K2 and K3)")
+                                     "and 6 chunks x 4 of K2 and K3 and x 22 of K4)")
 
         # Slices under 128² take the strict host preprocessing; the U-Net
         # still runs on the card.
@@ -893,8 +1057,7 @@ class Smoke:
         print(f"[inferer] 40x96² volume (host preprocessing): stack on {pre['normalized'].device}, "
               f"launches {small_launches}, labels {lungs}, shape {small_mask.shape}")
         self.check(pre["normalized"].is_cuda, "the small volume's stack is not on the card")
-        self.check(small_launches == {"bodymask_labels": 0, "avg_pool2": 8, "bilinear_up2": 8},
-                   f"small-volume launches {small_launches}")
+        self.check(small_launches == _want(0, 2), f"small-volume launches {small_launches}")
         self.check(small_mask.shape == small.shape and lungs == [0, 1, 2], f"labels {lungs}")
         self._traced_apply(inferer, vol, m, min(walls[1:]))
         self._heap_readings(vol, wpath)
@@ -1087,7 +1250,7 @@ class Smoke:
             same = bool(np.array_equal(mask, ref))
             print(f"[weights] apply of the {vol.shape[0]}-slice phantom: launches {launches}, "
                   f"labels {labels}, equal to LMInferer(modelpath=<the .pth>): {same}")
-            want = {"bodymask_labels": 1, "avg_pool2": 24, "bilinear_up2": 24}
+            want = _want(1, 6)
             self.check(launches == want, f"launches {launches}, expected {want}")
             self.check(same, "the fetched model's mask differs from the .pth's")
             self.check(mask.shape == vol.shape and mask.dtype == np.uint8, f"mask {mask.shape}")
@@ -1194,7 +1357,7 @@ class Smoke:
         loader.write_image(image.MedicalImage(vol, spacing=(0.7, 0.7, 2.5)), nii)
         nii_img = loader.load_input_image(nii)
         want = inferer.apply(vol)
-        expect = {"bodymask_labels": 1, "avg_pool2": 24, "bilinear_up2": 24}
+        expect = _want(1, 6)
         walls = {"dicom": [], "nifti": []}
         for name in ("dicom", "nifti", "nifti", "dicom", "dicom", "nifti"):  # in turns
             _reset_launches()
@@ -1334,7 +1497,8 @@ class Smoke:
         self.check(np.array_equal(m, masks[1]), "the 2 device-mode masks differ")
         self.check(m.shape == vol.shape and m.dtype == np.uint8, f"mask {m.shape} {m.dtype}")
         self.check(set(labels) <= {0, 1, 2} and m.any(), f"device-mode labels {labels}")
-        self.check(all(v > 0 for v in launches.values()), f"launches {launches}")
+        self.check(all(launches[k] > 0 for k in FORWARD)
+                   and not any(launches[k] for k in BACKWARD), f"launches {launches}")
         cmp = compare_masks(m, exact)
         print(f"[postdev] launches in the 2 device-mode calls: {launches} | labels {labels} | "
               f"device vs exact: voxel agreement {cmp.voxel_accuracy:.6f}, macro Dice "
@@ -1410,7 +1574,7 @@ class Smoke:
 
         paths = self._write_volumes(COHORT_SLICES, "cohort") + [self._series_dir("cohort_series")]
         chunks = sum(-(-n // CHUNK) for n in COHORT_SLICES + (SERIES_SLICES,))
-        want = {"bodymask_labels": len(paths), "avg_pool2": 4 * chunks, "bilinear_up2": 4 * chunks}
+        want = _want(len(paths), chunks)
         for mode, inferer in (("exact", self.state["inferer"]),
                               ("device", self.state["dev_inferer"])):
             out = os.path.join(self.state["tmp"], f"cohort_{mode}")
@@ -1499,7 +1663,8 @@ class Smoke:
               f"s: " + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()
                                 if k.endswith("seconds")))
         self.check(all(r is not None and r[0] == 200 for r in results), "a request failed")
-        self.check(all(v > 0 for v in launches.values()), f"launches {launches}")
+        self.check(all(launches[k] > 0 for k in FORWARD)
+                   and not any(launches[k] for k in BACKWARD), f"launches {launches}")
         for (status, body, ctype), path in zip(results, paths):
             if ctype == "application/zip":  # the .dcm answer: a zipped series
                 out = os.path.join(self.state["tmp"], "serve_dcm")
@@ -1525,10 +1690,9 @@ class Smoke:
         inferer.apply(vol)  # warm-up
         _reset_launches()
         mask = inferer.apply(vol)
-        launches = _launches(FORWARD + BACKWARD)
+        launches = _launches()
         chunks = -(-len(vol) // CHUNK)
-        want = {"bodymask_labels": 1, "avg_pool2": 4 * chunks, "bilinear_up2": 4 * chunks,
-                "avg_pool2_bwd": 0, "bilinear_up2_bwd": 0}
+        want = _want(1, chunks)
         self.check(launches == want, f"launches {launches}, expected {want}")
         pre, hyb = inferer.preprocess_image(vol), hybrid.preprocess_image(vol)
         self.check(pre["normalized"].is_cuda and pre["normalized"].shape == (len(vol), 256, 256),
@@ -1661,13 +1825,11 @@ class Smoke:
         ev = slices_from_pair(vol[TRAIN_SLICES : TRAIN_SLICES + EVAL_SLICES],
                               mask[TRAIN_SLICES : TRAIN_SLICES + EVAL_SLICES], device=dev)
         t_data = time.perf_counter() - t0
-        data_launches = _launches(FORWARD + BACKWARD)
+        data_launches = _launches()
         print(f"[train] slices_from_pair on the card: {len(ds)} train + {len(ev[0])} eval slices "
               f"of 256² in {t_data:.4f} s, launches {data_launches}, label classes "
               f"{sorted(int(v) for v in np.unique(ds.labels))}")
-        self.check(data_launches == {"bodymask_labels": 2, "avg_pool2": 0, "bilinear_up2": 0,
-                                     "avg_pool2_bwd": 0, "bilinear_up2_bwd": 0},
-                   f"data launches {data_launches}")
+        self.check(data_launches == _want(2, 0), f"data launches {data_launches}")
         self._warm_evaluate(ev)
         params = unet.init_params(3, generator=torch.Generator().manual_seed(0))
         steps = TRAIN_EPOCHS * (TRAIN_SLICES // TRAIN_BATCH)
@@ -1684,14 +1846,14 @@ class Smoke:
                       checkpoint_path=ck, checkpoint_every=steps // 2, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = _launches(FORWARD + BACKWARD)
+            launches = _launches()
             self.state["train_launches"] = launches
             losses = [h["loss"] for h in res.history if "loss" in h]
             dice = [h["eval_macro_dice"] for h in res.history if "eval_macro_dice" in h]
             chunks = 2 * -(-EVAL_SLICES // TRAIN_BATCH)  # two evaluations
-            want = {"bodymask_labels": 0, "avg_pool2": 4 * (steps + chunks),
-                    "bilinear_up2": 4 * (steps + chunks), "avg_pool2_bwd": 4 * steps,
-                    "bilinear_up2_bwd": 4 * steps}
+            # the steps' forwards under autograd keep torch's convolution: K4
+            # runs in the evaluations only
+            want = _want(0, steps + chunks, k4_forwards=chunks, steps=steps)
             print(f"[train] fit: {steps} steps of batch {TRAIN_BATCH} (wf=6, bf16, 256²) + 2 "
                   f"evaluations in {wall:.4f} s | launches {launches} | losses "
                   + ", ".join(f"{v:.5f}" for v in losses) + " | eval macro Dice "
@@ -1743,9 +1905,8 @@ class Smoke:
         _reset_launches()
         state, _ = step_fn(state, im, lb)
         torch.cuda.synchronize()
-        per_step = _launches(FORWARD + BACKWARD)
-        want = {"bodymask_labels": 0, "avg_pool2": 4, "bilinear_up2": 4, "avg_pool2_bwd": 4,
-                "bilinear_up2_bwd": 4}
+        per_step = _launches()
+        want = _want(0, 1, k4_forwards=0, steps=1)
         self.check(per_step == want, f"one step launched {per_step}, expected {want}")
         state, _ = step_fn(state, im, lb)
         times = []
@@ -1790,8 +1951,7 @@ class Smoke:
               f"{cpu:.6f} (float32 on the CPU, {t_cpu:.3f} s) | difference {abs(card - cpu):.3e}")
         self.check(card > WARM_DICE_MIN, f"the warm start reads macro Dice {card} on the card")
         self.check(abs(card - cpu) <= WARM_DICE_ATOL, f"card {card} against CPU {cpu}")
-        self.check(launches == {"bodymask_labels": 0, "avg_pool2": 4 * chunks,
-                                "bilinear_up2": 4 * chunks}, f"evaluate launched {launches}")
+        self.check(launches == _want(0, chunks), f"evaluate launched {launches}")
 
     def _finetune_cli(self, params):
         """``python -m lungmask_tpu_torch.train.finetune`` on the card: three
@@ -1915,24 +2075,32 @@ class Smoke:
                 diff = (lg_cpu - lc).abs()
                 within = bool((diff <= UNET_LOGIT_ATOL + UNET_LOGIT_RTOL * lc.abs()).all())
                 same_argmax = torch.equal(lg_cpu.argmax(-1), lc.argmax(-1))
+                _reset_launches()
                 a16 = unet.unet_argmax(gpu16, x)
+                torch.cuda.synchronize()
+                launches16 = _launches()
                 agree = float((a16 == lg.argmax(-1)).float().mean())
                 ms16 = _median_ms(torch, lambda: unet.unet_argmax(gpu16, x), 5, reps=1)
                 ms32 = _median_ms(torch, lambda: unet.unet_argmax(gpu32, x), 5, reps=1)
             am = lg.argmax(-1).reshape(-1).cpu().numpy()
             classes = np.bincount(am, minlength=3) / am.size
-            want = {"bodymask_labels": 0, "avg_pool2": 4, "bilinear_up2": 0 if up_mode == "upconv" else 4}
+            upconv = up_mode == "upconv"
+            want = _want(0, 1, k4_forwards=0, residual=residual, upconv=upconv)
+            want16 = _want(0, 1, residual=residual, upconv=upconv)
             print(f"[variants] {name}: {CHUNK} slices 256² on the GPU, the first "
                   f"{VARIANT_CPU_SLICES} in f32 (TF32 off) vs CPU f32 ({t_cpu:.2f} s): "
                   f"max |dlogit| {float(diff.max()):.3e} of max |logit| {float(lc.abs().max()):.3e} "
                   f"(bound {UNET_LOGIT_ATOL} + {UNET_LOGIT_RTOL}*|x|), identical argmax "
                   f"{same_argmax}, class shares {np.round(classes, 4).tolist()} | bf16 argmax "
-                  f"agreement with f32 {agree:.6f} | launches per forward {launches} | "
+                  f"agreement with f32 {agree:.6f} | launches per forward {launches} (f32), "
+                  f"{launches16} (bf16) | "
                   f"forward+argmax bf16 {ms16:.3f} ms, f32 {ms32:.3f} ms ({self.state['smi']})")
             self.check(within, f"{name}: GPU f32 logits outside the bound")
             self.check(same_argmax, f"{name}: GPU f32 argmax differs from CPU f32")
             self.check(agree >= BF16_MIN_AGREEMENT, f"{name}: bf16 agreement {agree}")
             self.check(launches == want, f"{name}: launches {launches}, expected {want}")
+            self.check(launches16 == want16, f"{name}: bf16 launches {launches16}, "
+                                             f"expected {want16}")
 
         # A variant checkpoint as the reference ships one: a .pth state dict.
         path = os.path.join(self.state["tmp"], "residual_upconv.pth")
@@ -1946,7 +2114,7 @@ class Smoke:
         launches = _launches()
         labels = sorted(int(v) for v in np.unique(mask))
         chunks = -(-len(vol) // CHUNK)
-        want = {"bodymask_labels": 1, "avg_pool2": 4 * chunks, "bilinear_up2": 0}
+        want = _want(1, chunks, residual=True, upconv=True)
         print(f"[variants] LMInferer(modelpath=<residual+upconv .pth>).apply of the {len(vol)}-slice "
               f"phantom: {wall:.4f} s | launches {launches} | labels {labels} | shape {mask.shape} "
               f"{mask.dtype}")
@@ -1996,11 +2164,9 @@ class Smoke:
                     t0 = time.perf_counter()
                     mask = inf.apply(vol)
                     wall = time.perf_counter() - t0
-                    launches = _launches(FORWARD + BACKWARD)
+                    launches = _launches()
                     models = 2 if fused else 1
-                    want = {"bodymask_labels": ndata[mname], "avg_pool2": 4 * chunks * models,
-                            "bilinear_up2": 4 * chunks * models, "avg_pool2_bwd": 0,
-                            "bilinear_up2_bwd": 0}
+                    want = _want(ndata[mname], chunks * models)
                     same = bool(np.array_equal(mask, ref))
                     st = inf.timings.summary()
                     stages = " ".join(f"{k} {st.get(k, 0.0):.4f}" for k in (
@@ -2063,10 +2229,9 @@ class Smoke:
             res = fit(params, ds, **kw, **extra)
             torch.cuda.synchronize()
             runs[name] = ([h["loss"] for h in res.history if "loss" in h],
-                          time.perf_counter() - t0, _launches(FORWARD + BACKWARD))
+                          time.perf_counter() - t0, _launches())
         losses, wall, launches = runs["data-2"]
-        want = {"bodymask_labels": 0, "avg_pool2": 8 * steps, "bilinear_up2": 8 * steps,
-                "avg_pool2_bwd": 8 * steps, "bilinear_up2_bwd": 8 * steps}
+        want = _want(0, 2 * steps, k4_forwards=0, steps=2 * steps)
         print(f"[mesh] fit(mesh=data-2 on cuda:0), {steps} bf16 steps of batch {TRAIN_BATCH} "
               f"({TRAIN_BATCH // 2} per shard, wf=6, 256²): {wall:.4f} s | launches {launches} "
               f"(K2/K3/K2ᵀ/K3ᵀ 4/4/4/4 per shard and step) | losses "
@@ -2211,7 +2376,7 @@ class Smoke:
                           f"32-slice chunk: 2 bands {ms['banded']:.3f} ms, whole "
                           f"{ms['whole']:.3f} ms | launches per band "
                           f"{ {k: v / 2 for k, v in launches.items()} }")
-                    want = {"bodymask_labels": 0, "avg_pool2": 8, "bilinear_up2": 8}
+                    want = _want(0, 2, k4_forwards=2 if dtype == torch.bfloat16 else 0)
                     self.check(launches == want, f"banded launches {launches}, expected {want}")
                     if name == "random":
                         for what, fn in (("whole", lambda: model.logits(x)),
@@ -2347,14 +2512,11 @@ class Smoke:
                     t0 = time.perf_counter()
                     mask = inf.apply(vol)
                     wall = time.perf_counter() - t0
-                    launches = _launches(FORWARD + BACKWARD)
+                    launches = _launches()
                     # Each data row runs its slab in chunks of 32, each chunk as 2 bands.
                     chunks = sum(-(-(b - a) // CHUNK)
                                  for a, b in split_rows(len(vol), mesh.shape["data"]))
-                    want = {"bodymask_labels": mesh.shape["data"],
-                            "avg_pool2": 4 * chunks * models * 2,
-                            "bilinear_up2": 4 * chunks * models * 2,
-                            "avg_pool2_bwd": 0, "bilinear_up2_bwd": 0}
+                    want = _want(mesh.shape["data"], chunks * models * 2)
                     differ = int((mask != ref).sum())
                     print(f"[space] {mname} mesh {'fused' if fused else 'single'} {post}, bf16: "
                           f"apply {wall:.4f} s | launches {launches} | voxels differing from "
@@ -2428,12 +2590,11 @@ class Smoke:
             res = fit(params, ds, **kw, **extra)
             torch.cuda.synchronize()
             runs[name] = ([h["loss"] for h in res.history if "loss" in h],
-                          time.perf_counter() - t0, _launches(FORWARD + BACKWARD))
+                          time.perf_counter() - t0, _launches())
         losses, wall, launches = runs["1x2"]
         ref = runs["unsharded"][0]
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
-        want = {"bodymask_labels": 0, "avg_pool2": 8 * steps, "bilinear_up2": 8 * steps,
-                "avg_pool2_bwd": 8 * steps, "bilinear_up2_bwd": 8 * steps}
+        want = _want(0, 2 * steps, k4_forwards=0, steps=2 * steps)
         print(f"[space] fit(mesh=1x2), {steps} bf16 steps of batch {TRAIN_BATCH} (2 bands of 128 "
               f"rows, wf=6): {wall:.4f} s | launches {launches} "
               f"(K2/K3/K2ᵀ/K3ᵀ 8/8/8/8 per step) "
@@ -2494,9 +2655,10 @@ class Smoke:
             "import json, runpy, sys\n"
             f"sys.argv = {[path] + list(args)!r}\n"
             f"runpy.run_path({path!r}, run_name='__main__')\n"
-            "from lungmask_tpu_torch.ops.kernels import bodymask, stencil\n"
+            "from lungmask_tpu_torch.ops.kernels import bodymask, conv_stage, stencil\n"
             "print('LAUNCHES ' + json.dumps({\n"
             "    'bodymask_labels': bodymask.bodymask_labels.launches,\n"
+            "    'conv_stage': conv_stage.conv_stage.launches,\n"
             "    **{name: getattr(stencil, name).launches for name in (\n"
             "        'avg_pool2', 'bilinear_up2', 'avg_pool2_bwd', 'bilinear_up2_bwd')}}))\n"
         )
@@ -2566,12 +2728,11 @@ class Smoke:
         print(f"[examples] the four runs together: {time.perf_counter() - t0:.2f} s")
 
         chunks = -(-vol.shape[0] // CHUNK)
-        one_apply = {"bodymask_labels": 1, "avg_pool2": 4 * chunks, "bilinear_up2": 4 * chunks,
-                     "avg_pool2_bwd": 0, "bilinear_up2_bwd": 0}
+        one_apply = _want(1, chunks)
         for tag, path, ref, want in (
                 ("segment_volume", masks["single"], mask, one_apply),
                 ("segment_volume --lobes", masks["lobes"], self.state["fused_mask"],
-                 dict(one_apply, avg_pool2=8 * chunks, bilinear_up2=8 * chunks))):
+                 _want(1, 2 * chunks))):
             out, launches, wall = done[tag]
             same = bool(np.array_equal(loader.load_input_image(path).array, ref))
             stages = " | ".join(" ".join(ln.split()) for ln in
@@ -2585,8 +2746,7 @@ class Smoke:
 
         out, launches, wall = done["cohort_streaming"]
         chunks = sum(-(-n // CHUNK) for n in counts)
-        want = dict(one_apply, bodymask_labels=len(counts), avg_pool2=4 * chunks,
-                    bilinear_up2=4 * chunks)
+        want = _want(len(counts), chunks)
         inferer = self.state["inferer"]
         same = [bool(np.array_equal(
             loader.load_input_image(os.path.join(cohort_out, f"cohort{i}_mask.nii.gz")).array,
@@ -2636,7 +2796,7 @@ class Smoke:
               f"share {shares[top]:.1%} ({top}) | launches {launches} | {wall:.2f} s "
               f"({self.state['smi']})")
         self.check(shares[top] <= LAYER_SHARE_MAX, f"{top} reads {shares[top]:.1%} of its bound")
-        self.check(launches["avg_pool2"] > 0 and launches["bilinear_up2"] > 0,
+        self.check(all(launches[k] > 0 for k in ("avg_pool2", "bilinear_up2", "conv_stage")),
                    f"layer_bench launched {launches}")
         self.state["layers"] = result
 
@@ -2680,10 +2840,11 @@ def main() -> int:
             "examples": {"phantom": "kernel", "params": "unet", "mask": "inferer",
                          "inferer": "inferer", "fused_mask": "fused", "cache": "fused"},
             "layers": {"chunk_ms": "unet", "smi": "device"},
+            "convstage": {"smi": "device"},
         }
-        for name in ("device", "build", "kernel", "unet", "stencil", "fused", "inferer",
-                     "weights", "cli", "dicom", "postdev", "cohort", "serve", "devprep", "train",
-                     "variants", "mesh", "space", "examples", "layers"):
+        for name in ("device", "build", "kernel", "unet", "stencil", "convstage", "fused",
+                     "inferer", "weights", "cli", "dicom", "postdev", "cohort", "serve", "devprep",
+                     "train", "variants", "mesh", "space", "examples", "layers"):
             missing = [(key, maker) for key, maker in needs.get(name, {}).items()
                        if key not in smoke.state]
             if missing:
@@ -2696,13 +2857,14 @@ def main() -> int:
         print(f"chip_smoke: FAILED phases: {', '.join(smoke.failures)}")
         return 1
     measured = {"bodymask_labels": smoke.state["k1"], **smoke.state["stencil"],
-                **smoke.state["adjoints"]}
+                "conv_stage": smoke.state["k4"], **smoke.state["adjoints"]}
     launches = {**smoke.state["launches"], **{k: smoke.state["train_launches"][k]
                                               for k in BACKWARD}}
     sources = {
         "bodymask_labels": (K1_SOURCE, K1_REPLACES),
         "avg_pool2": (STENCIL_SOURCE, K2_REPLACES),
         "bilinear_up2": (STENCIL_SOURCE, K3_REPLACES),
+        "conv_stage": (K4_SOURCE, K4_REPLACES),
         "avg_pool2_bwd": (STENCIL_SOURCE, K2T_REPLACES),
         "bilinear_up2_bwd": (STENCIL_SOURCE, K3T_REPLACES),
     }

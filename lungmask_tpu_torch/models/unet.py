@@ -8,10 +8,21 @@ into a per-channel affine (``models/convert.py``).
 * Interface: NHWC input ``(N, H, W, 1)`` and NHWC logits ``(N, H, W, K)``,
   the JAX package's layout; inside, NCHW tensors in ``channels_last`` memory.
 * Conv block: conv3x3 → ReLU → affine, twice (the reference's BN sits after
-  the ReLU). The conv runs in the compute dtype; bias, ReLU and affine run in
-  float32 on its output, which is then cast once to the compute dtype. A
-  bf16 torch conv rounds its output to bf16 before the bias, where JAX keeps
-  the float32 accumulator — bf16 parity is by tolerance, never bit for bit.
+  the ReLU). In bf16 with no gradient recorded (every inference path, and
+  ``train.loop.evaluate``) each stage is one launch of K4
+  (``ops/kernels/conv_stage``): the bf16 convolution accumulated in float32,
+  the float32 bias, ReLU and affine on that accumulator, one rounding to
+  bf16 — JAX's ``_conv`` → ``maximum`` → ``_affine`` → ``astype``. The 1×1
+  projections take K4 bias only; the residual variant's second convs and
+  its 1×1 paths take its float32 output, added in float32 as in JAX. An
+  inference module keeps its bf16 conv weights in channels_last memory, so
+  K4's ``(cout, kh, kw, cin)`` lay-out of them is a view; a trainable
+  module's float32 weights are cast and laid out at each call. Elsewhere — float32, and a trainable module under
+  autograd — the conv is torch's (cuDNN) in the compute dtype and the
+  epilogue runs in float32 on its output: a bf16 torch conv rounds its
+  output before the bias, so the bf16 train forward still differs from JAX
+  there (ROADMAP §3: the train forward and a backward through K4 next;
+  JAX's ``_conv_acc32_bwd`` takes bf16 dgrad/wgrad).
 * Down path: 2×2 average pooling between levels, K2
   (``ops/kernels/stencil.avg_pool2``).
 * Up path: bilinear ×2 with half-pixel centres, K3
@@ -71,6 +82,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lungmask_tpu_torch.ops.kernels import conv_stage as k4
 from lungmask_tpu_torch.ops.kernels import stencil
 
 Params = Dict[str, Any]
@@ -116,11 +128,15 @@ def _hold(module: nn.Module, name: str, value: torch.Tensor, trainable: bool,
           dtype: torch.dtype, at: Tuple[str, str]) -> None:
     """Keep weight ``name``, which sits at ``at`` = (group, key) of the
     module's port tree: a float32 ``nn.Parameter`` of its own (trainable) or
-    a buffer in ``dtype``."""
+    a buffer in ``dtype``, a conv weight in channels_last memory (its
+    ``permute(0, 2, 3, 1)`` is K4's lay-out, contiguous)."""
     if trainable:
         module.register_parameter(name, nn.Parameter(value.detach().float().clone()))
     else:
-        module.register_buffer(name, value.detach().to(dtype))
+        value = value.detach().to(dtype)
+        if value.ndim == 4:
+            value = value.contiguous(memory_format=torch.channels_last)
+        module.register_buffer(name, value)
     if "tree_at" not in module.__dict__:
         module.tree_at = {}
     module.tree_at[name] = at
@@ -156,8 +172,8 @@ def _conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, padding) -> torch
 
 def _conv(x, w: torch.Tensor, b: torch.Tensor):
     """A 3×3 (zero-padded; between bands, the neighbours' rows) or 1×1
-    convolution in ``x``'s dtype, its output in float32 plus the float32
-    bias."""
+    convolution in ``x``'s dtype (torch's), its output in float32 plus the
+    float32 bias."""
     k = w.shape[-1] // 2
     if isinstance(x, torch.Tensor) or k == 0:
         return _each(_conv2d, x, w, b, k)
@@ -169,10 +185,50 @@ def _affine(x, s: torch.Tensor, t: torch.Tensor):
     return _each(lambda y, s, t: y * _vec(s).to(y.dtype) + _vec(t).to(y.dtype), x, s, t)
 
 
-def _nhwc_op(y: torch.Tensor, op) -> torch.Tensor:
-    """``op`` (a stencil of ``ops/kernels/stencil``) on the NHWC view of an
+def _nhwc_op(y: torch.Tensor, op, *args) -> torch.Tensor:
+    """``op(y, *args)`` (a kernel of ``ops/kernels``) on the NHWC view of an
     NCHW channels_last tensor, which is contiguous: no copy."""
-    return op(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    return op(y.permute(0, 2, 3, 1), *args).permute(0, 3, 1, 2)
+
+
+def _k4_takes(x, *weights: torch.Tensor) -> bool:
+    """Whether K4 runs a stage on ``x`` (a tensor or bands): bf16
+    activations and no gradient recorded."""
+    if x.dtype != torch.bfloat16:
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    parts = [x] if isinstance(x, torch.Tensor) else x.parts
+    return not any(t is not None and t.requires_grad for t in parts + list(weights))
+
+
+def _relu_affine(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return torch.relu(y) * _vec(s) + _vec(t)
+
+
+def _stage(module: nn.Module, x, name: str, b: torch.Tensor, s: Optional[torch.Tensor] = None,
+           t: Optional[torch.Tensor] = None, out_dtype: Optional[torch.dtype] = None):
+    """The convolution by the module's weight ``name`` (3×3 zero-padded, or
+    1×1) + ``b``, then, given ``s`` and ``t``, ReLU and the affine, cast to
+    ``out_dtype`` (``x``'s dtype by default; float32 keeps the sum): one K4
+    launch where K4 takes it (:func:`_k4_takes`), else torch's convolution
+    and the float32 epilogue. On bands, each band padded with its
+    neighbours' rows."""
+    w = getattr(module, name)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    k = w.shape[-1] // 2
+    if _k4_takes(x, w, b, s, t):
+        def op(y, wk, b, s, t, padding):
+            return _nhwc_op(y, k4.conv_stage, wk, b, s, t, padding, out_dtype)
+
+        wk = k4.weight_layout(w)
+        if isinstance(x, torch.Tensor) or k == 0:
+            return _each(op, x, wk, b, s, t, (k, k))
+        return x.halo(op, wk, b, s, t, (0, k), rows=k, zeros=True)
+    y = _conv(x, w, b)
+    if s is not None:
+        y = _each(_relu_affine, y, s, t)
+    return _each(lambda y, dtype: y.to(dtype), y, out_dtype)
 
 
 def _pool(x):
@@ -205,7 +261,7 @@ class ResPath(nn.Module):
         _hold(self, "t", p["bn"]["bias"], trainable, torch.float32, ("bn", "bias"))
 
     def forward(self, x):
-        return _affine(_conv(x, self.w, self.b), self.s, self.t)
+        return _affine(_stage(self, x, "w", self.b, out_dtype=torch.float32), self.s, self.t)
 
 
 class ConvBlock(nn.Module):
@@ -225,22 +281,16 @@ class ConvBlock(nn.Module):
                 _hold(self, f"t_{bn}", p[bn]["bias"], trainable, torch.float32, (bn, "bias"))
         self.res = ResPath(p["res"], compute_dtype, trainable) if "res" in p else None
 
-    @staticmethod
-    def _stage(x, w, b, s, t):
-        def epilogue(y, s, t, dtype):
-            return (torch.relu(y) * _vec(s) + _vec(t)).to(dtype)
-
-        return _each(epilogue, _conv(x, w, b), s, t, x.dtype)
-
     def forward(self, x):
         if self.res is None:
-            x = self._stage(x, self.w1, self.b1, self.s_bn1, self.t_bn1)
-            return self._stage(x, self.w2, self.b2, self.s_bn2, self.t_bn2)
+            x = _stage(self, x, "w1", self.b1, self.s_bn1, self.t_bn1)
+            return _stage(self, x, "w2", self.b2, self.s_bn2, self.t_bn2)
         inp = x
         if hasattr(self, "s_bn_pre"):
             x = _affine(_each(torch.relu, x), self.s_bn_pre, self.t_bn_pre)
-        x = self._stage(x, self.w1, self.b1, self.s_bn1, self.t_bn1)
-        return _each(_add_to, _conv(x, self.w2, self.b2), self.res(inp), inp.dtype)
+        x = _stage(self, x, "w1", self.b1, self.s_bn1, self.t_bn1)
+        x = _stage(self, x, "w2", self.b2, out_dtype=torch.float32)
+        return _each(_add_to, x, self.res(inp), inp.dtype)
 
 
 def _upconv2(x: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor) -> torch.Tensor:
@@ -275,8 +325,7 @@ class UpBlock(nn.Module):
         if self.upconv:
             up = _each(_upconv2, x, self.wp, self.bp)
         else:
-            up = _up2(x)
-            up = _each(lambda y, dtype: y.to(dtype), _conv(up, self.wp, self.bp), up.dtype)
+            up = _stage(self, _up2(x), "wp", self.bp)
         skip = _center_crop(skip, up)
         x = _each(lambda u, s: torch.cat([u, s], dim=1), up, skip)
         out = self.conv_block(x)

@@ -1,4 +1,5 @@
-"""The port's hand-written CUDA kernels (K1 ``bodymask``, K2/K3 ``stencil``).
+"""The port's hand-written CUDA kernels (K1 ``bodymask``, K2/K3 ``stencil``, K4
+``conv_stage``).
 
 Each wrapper counts its kernel's launches in its ``.launches`` attribute.
 The cohort and serve lanes launch kernels from several threads, so the count

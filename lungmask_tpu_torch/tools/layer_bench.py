@@ -6,15 +6,18 @@
 Times each op of ``tools/roofline.py``'s schedule (chunk 32 by default) in
 isolation, in bf16, through the port's own forward code:
 
-* each 3×3 conv as ``models/unet.ConvBlock._stage`` runs it: the cuDNN
-  conv, then its float32 bias, ReLU, folded-BN affine and the cast back
-  (the epilogue). The conv alone (``F.conv2d``) is timed too, and the
-  epilogue is reported apart as the op's time less the conv's;
+* each 3×3 conv stage (with ReLU + folded-BN affine) and each 1×1
+  projection (bias only) as ``models/unet._stage`` runs it in bf16
+  inference: one launch of K4 (``ops/kernels/conv_stage``), the float32
+  accumulator through the epilogue, one rounding. Beside it the split the
+  port ran before K4 (``conv_stage.conv_stage_cudnn``: the cuDNN bf16 conv,
+  then its float32 bias, ReLU, affine and the cast back), the cuDNN conv
+  alone (``F.conv2d``), and that split's epilogue as its time less the
+  conv's;
 * K2 and K3 through ``models/unet._pool`` / ``_up2``, which launch the
   hand-written kernels of ``ops/kernels/stencil`` on a CUDA tensor;
-* the 1×1 projections (``unet._conv`` and the cast), the concats
-  (``torch.cat`` of two channels_last halves), the head (the float32
-  channel matmul + bias of ``UNet.logits``) and its argmax.
+* the concats (``torch.cat`` of two channels_last halves), the head (the
+  float32 channel matmul + bias of ``UNet.logits``) and its argmax.
 
 Each op's time is the median over ``RUNS`` (5) CUDA-event timings of
 ``REPS`` (10) back-to-back calls, after two warm-up calls. The calls cycle through
@@ -28,7 +31,7 @@ share of the op's roofline bound (``tools/roofline.bound_ms``) that the
 time reaches. Times are of the device they ran on, which the output names.
 
 ``--cpu`` runs a tiny schedule (depth 3, wf 2, 32², chunk 2 unless given)
-on the CPU, where the stencils take their plain versions; its times are the
+on the CPU, where the kernels take their plain versions; its times are the
 CPU's and say nothing about the card.
 """
 
@@ -42,8 +45,10 @@ import time
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from lungmask_tpu_torch.models import unet
+from lungmask_tpu_torch.ops.kernels import conv_stage as k4
 from lungmask_tpu_torch.tools import roofline
 from lungmask_tpu_torch.utils.device import resolve_device
 
@@ -87,8 +92,9 @@ def _copies(nbytes: float) -> int:
 
 
 def _op_fns(op: roofline.Op, dtype, device, gen):
-    """(the op as the forward runs it, the conv alone or None), each
-    ``fn(i)`` over the ``i``-th copy of a seeded random input."""
+    """(the op as the forward runs it, the cuDNN conv + float32 epilogue or
+    None, the cuDNN conv alone or None), each ``fn(i)`` over the ``i``-th
+    copy of a seeded random input."""
 
     def rand(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=device) * scale)
@@ -104,24 +110,31 @@ def _op_fns(op: roofline.Op, dtype, device, gen):
         if op.kind == "head":
             wl = wt[:, :, 0, 0].t().contiguous()
             return (lambda i: torch.matmul(xs[i % len(xs)].permute(0, 2, 3, 1).float(),
-                                           wl.float()) + b), None
-        conv = (lambda i: F.conv2d(xs[i % len(xs)], wt, padding=pad))
-        if op.k == 1:  # the projection: conv + float32 bias, cast back
-            return (lambda i: unet._conv(xs[i % len(xs)], wt, b).to(dtype)), conv
-        return (lambda i: unet.ConvBlock._stage(xs[i % len(xs)], wt, b, s, t)), conv
+                                           wl.float()) + b), None, None
+        holder = nn.Module()  # the stage's weight, as a block holds it
+        holder.register_buffer("w", wt)
+        aff = (s, t) if op.k == 3 else (None, None)  # the 1×1 projection: bias only
+        wk = k4.weight_layout(wt)
+
+        def nhwc(i):
+            return xs[i % len(xs)].permute(0, 2, 3, 1)
+
+        return ((lambda i: unet._stage(holder, xs[i % len(xs)], "w", b, *aff)),
+                (lambda i: k4.conv_stage_cudnn(nhwc(i), wk, b, *aff, padding=(pad, pad))),
+                (lambda i: F.conv2d(xs[i % len(xs)], wt, padding=pad)))
     if op.kind == "pool":
         xs = nchw(op.cin, op.h, op.w, _copies(op.bytes))
-        return (lambda i: unet._pool(xs[i % len(xs)])), None
+        return (lambda i: unet._pool(xs[i % len(xs)])), None, None
     if op.kind == "up":
         xs = nchw(op.cin, op.h, op.w, _copies(op.bytes))
-        return (lambda i: unet._up2(xs[i % len(xs)])), None
+        return (lambda i: unet._up2(xs[i % len(xs)])), None, None
     if op.kind == "concat":
         ups = nchw(op.cin, op.h, op.w, _copies(op.bytes))
         skips = nchw(op.cin, op.h, op.w, len(ups))
-        return (lambda i: torch.cat([ups[i % len(ups)], skips[i % len(ups)]], dim=1)), None
+        return (lambda i: torch.cat([ups[i % len(ups)], skips[i % len(ups)]], dim=1)), None, None
     if op.kind == "argmax":
         xs = [rand(op.n, op.h, op.w, op.cin) for _ in range(_copies(op.bytes))]
-        return (lambda i: torch.argmax(xs[i % len(xs)], dim=-1).to(torch.uint8)), None
+        return (lambda i: torch.argmax(xs[i % len(xs)], dim=-1).to(torch.uint8)), None, None
     raise ValueError(f"unknown op kind {op.kind}")
 
 
@@ -136,19 +149,19 @@ def run(chunk: int = 32, *, depth: int = roofline.DEPTH, wf: int = roofline.WF,
     rows = []
     with torch.inference_mode(), unet.conv_flags(dtype):
         for op in ops:
-            whole, conv = _op_fns(op, dtype, device, gen)
+            whole, split, conv = _op_fns(op, dtype, device, gen)
             ms = _median_ms(whole, device)
-            conv_ms = _median_ms(conv, device) if conv is not None else None
             bound, by = roofline.bound_ms(op)
             row = {"op": op.name, "kind": op.kind, "ms": ms,
                    "achieved_tflops": op.flops / ms / 1e9, "bound_ms": bound, "bound_by": by,
                    "share": bound / ms}
-            if conv_ms is not None:
-                row.update(conv_ms=conv_ms, epilogue_ms=ms - conv_ms,
+            if conv is not None:
+                cudnn_ms, conv_ms = _median_ms(split, device), _median_ms(conv, device)
+                row.update(cudnn_ms=cudnn_ms, conv_ms=conv_ms, epilogue_ms=cudnn_ms - conv_ms,
                            conv_achieved_tflops=op.flops / conv_ms / 1e9,
                            conv_share=bound / conv_ms)
             rows.append(row)
-            del whole, conv
+            del whole, split, conv
         params = unet.init_params(roofline.N_CLASSES, depth=depth, wf=wf,
                                   generator=torch.Generator().manual_seed(SEED))
         model = unet.UNet(params, dtype).to(device).eval()
@@ -167,11 +180,13 @@ def report(result: dict) -> str:
     lines = [f"device {result['device']} | chunk {result['chunk']} | depth {result['depth']} "
              f"wf {result['wf']} {result['size']}² | {result['dtype']} | median of "
              f"{result['runs']} runs of {result['reps']} calls per op",
+             "(conv stages: ms is K4's; cuDNN+epi the cuDNN conv with the float32 "
+             "epilogue the port ran before K4, conv ms the cuDNN conv alone)",
              f"{'op':44s} {'ms':>9s} {'TFLOP/s':>8s} {'bound ms':>9s} {'share':>7s} "
-             f"{'conv ms':>9s} {'epilogue ms':>11s} {'conv share':>10s}"]
+             f"{'cuDNN+epi':>9s} {'conv ms':>9s} {'epilogue ms':>11s} {'conv share':>10s}"]
     for r in result["ops"]:
-        conv = (f"{r['conv_ms']:9.4f} {r['epilogue_ms']:11.4f} {r['conv_share']:10.1%}"
-                if "conv_ms" in r else "")
+        conv = (f"{r['cudnn_ms']:9.4f} {r['conv_ms']:9.4f} {r['epilogue_ms']:11.4f} "
+                f"{r['conv_share']:10.1%}" if "conv_ms" in r else "")
         lines.append(f"{r['op']:44s} {r['ms']:9.4f} {r['achieved_tflops']:8.1f} "
                      f"{r['bound_ms']:9.4f} {r['share']:7.1%} {conv}")
     by_kind = {}
@@ -182,8 +197,10 @@ def report(result: dict) -> str:
                  f"{result['forward_ms']:.4f} ms | roofline bound {result['roofline_ms']:.4f} ms "
                  f"({result['roofline_ms'] / result['forward_ms']:.1%} of the forward)")
     lines.append("by kind: " + ", ".join(f"{k} {v:.4f} ms" for k, v in by_kind.items())
-                 + f" | of the convs: cuDNN {sum(r['conv_ms'] for r in convs):.4f} ms, "
-                 f"epilogues {sum(r['epilogue_ms'] for r in convs):.4f} ms")
+                 + f" | the conv stages: K4 {sum(r['ms'] for r in convs):.4f} ms; before K4 "
+                 f"{sum(r['cudnn_ms'] for r in convs):.4f} ms = cuDNN "
+                 f"{sum(r['conv_ms'] for r in convs):.4f} + epilogues "
+                 f"{sum(r['epilogue_ms'] for r in convs):.4f}")
     return "\n".join(lines)
 
 

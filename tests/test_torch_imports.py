@@ -40,6 +40,7 @@ def test_port_imports_without_jax_or_tqdm():
         "import lungmask_tpu_torch.runtime.cohort, lungmask_tpu_torch.runtime.serve\n"
         "import lungmask_tpu_torch.metrics\n"
         "import lungmask_tpu_torch.ops.kernels.bodymask, lungmask_tpu_torch.ops.kernels.stencil\n"
+        "import lungmask_tpu_torch.ops.kernels.conv_stage\n"
         "import lungmask_tpu_torch.train\n"
         "from lungmask_tpu_torch.train import (augment, checkpoint, data, finetune, loop, optim,\n"
         "                                      store, trainer)\n"

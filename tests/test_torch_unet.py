@@ -9,9 +9,15 @@ Tolerances (narrow net, wf=2):
   logits (both accumulate in float32 in different orders; the measured
   difference is ~1e-6), and an identical argmax (the smallest top-2 logit
   gap on these inputs is ~1e-4).
-* bfloat16: at least 99% argmax agreement with JAX bf16 — the torch bf16
-  conv rounds its output before the float32 bias/ReLU/affine where JAX keeps
-  the float32 accumulator, so the two differ by bf16 rounding.
+* bfloat16: each conv stage is K4's plain version on the CPU (a float32
+  accumulator through the bias, ReLU and affine, one rounding), as JAX's.
+  Against JAX bf16 as it runs on the CPU: at least 99.8% argmax agreement
+  (99.84% measured) and logits within 0.05 (0.0465 measured; torch's bf16
+  conv before K4: 0.0546): what still differs is JAX's pooling and
+  upsampling, which XLA rounds to bf16 at each step where K2 and K3 (and the
+  JAX package's own Pallas kernels) round once. With those two swapped for
+  the JAX package's Pallas kernels (interpret mode), the logits are JAX's
+  to 1e-6 of the largest and the argmax identical (measured: equal).
 """
 
 import jax.numpy as jnp
@@ -54,14 +60,26 @@ def test_float32_logits_match(params, hw):
     assert len(np.unique(am)) >= 2  # the argmax check bites
 
 
-def test_bfloat16_argmax_agreement(params):
+def test_bfloat16_argmax_agreement(params, monkeypatch):
+    from lungmask_tpu.ops.pallas import stencil as jst
+
     x = _inputs(2, 64, 64, seed=1)
-    want = _jax_logits(params, x, jnp.bfloat16).argmax(-1)
+    want = _jax_logits(params, x, jnp.bfloat16)
     model = unet.UNet(convert.from_jax_params(params), torch.bfloat16)
     with torch.inference_mode():
+        logits = unet.unet_logits(model, torch.from_numpy(x)).numpy()
         got = unet.unet_argmax(model, torch.from_numpy(x)).numpy()
     assert model.wl.dtype == torch.bfloat16 and model.down[0].b1.dtype == torch.float32
-    assert (got == want).mean() >= 0.99
+    np.testing.assert_array_equal(got, logits.argmax(-1))
+    assert (got == want.argmax(-1)).mean() >= 0.998
+    assert np.abs(logits - want).max() <= 0.05
+    # JAX with its stencils as its Pallas kernels compute them (one rounding).
+    monkeypatch.setattr(junet, "_avg_pool2", lambda v: jst.avg_pool2_pallas(v, interpret=True))
+    monkeypatch.setattr(junet, "_bilinear_up2",
+                        lambda v: jst.bilinear_up2_pallas(v, interpret=True))
+    once = _jax_logits(params, x, jnp.bfloat16)
+    np.testing.assert_allclose(logits, once, rtol=0, atol=1e-6 * np.abs(once).max())
+    np.testing.assert_array_equal(got, once.argmax(-1))
 
 
 def test_from_jax_params_layout(params):
