@@ -5,19 +5,29 @@
 
 Builds every kernel of the port from the sources in this checkout (K1, the
 bodymask; K2 and K3, the U-Net's pooling and upsampling, and their adjoints
-K2ᵀ and K3ᵀ; K4, the U-Net's bf16 conv stage; all nvcc builds started
-together), checks each against its plain PyTorch version on the card, then
+K2ᵀ and K3ᵀ; K4, the U-Net's bf16 conv stage, in its two routes: the
+wgmma/TMA kernel for cin a multiple of 64 and the mma.sync kernel for the
+rest; all nvcc builds started together), checks each against its plain
+PyTorch version on the card, then
 drives the port's paths at the production width (U-Net wf=6) on a
 192-slice 512² lung phantom made from a seed, with crafted weights:
 
 * K4 at each of the U-Net's 22 conv stages at chunk 32 (18 3×3 with ReLU +
-  affine, 4 1×1 projections bias only; ``convstage`` phase): the share of
-  its bf16 outputs a step from the plain version (≤ 0.1%; an outlier, where
-  the affine cancels, within 2^-20 of its float32 scale), timed in turns
-  with the plain version and with the cuDNN conv + float32 epilogue it
-  replaced (``library_ms``); and in the unet phase one chunk's forward
-  through K4 against the same forward through K4's plain version (argmax
-  agreement ≥ 0.999, 22 launches);
+  affine, 4 1×1 projections bias only; ``convstage`` phase), the routed call
+  (TMA at 21 stages, mma.sync at the first) and the mma.sync route forced:
+  the share of their bf16 outputs a step from the plain version (≤ 0.1%; an outlier, where the affine cancels, within
+  2^-20 of its float32 scale) and the float32 ``z`` the backward reads,
+  timed in turns with the plain version, the cuDNN conv + float32
+  epilogue it replaced (``library_ms``) and cuDNN's conv alone, with each
+  stage's TFLOP/s and share of its bound, the halo kernel's stages (the
+  three 256² ones with cout 64) on a line of their own (the build phase
+  prints ptxas's registers, spills and wgmma serialisation notes of both
+  routes' kernels); the same stages at the train step's batch; ragged
+  shapes and bands through both routes, a band bit-equal to the whole
+  image's rows; and in the unet phase one chunk's forward through K4
+  against the same forward through K4's plain version (argmax agreement ≥
+  0.999, 22 launches: 21 TMA, 1 mma.sync) and two bands' forward against
+  the whole height's, the head's input bit for bit;
 
 * the fused two-model path — ``LMInferer(modelname="LTRCLobes",
   fillmodel="R231")`` and the CLI's ``--modelname LTRCLobes_R231``, both
@@ -67,9 +77,13 @@ drives the port's paths at the production width (U-Net wf=6) on a
   seed 0) in bf16 at batch 8 on 256² slices made on the card by
   ``slices_from_pair`` (phantom[:64] to train, phantom[64:96] to evaluate,
   the exact-path mask as labels): 16 steps, the loss must fall, each step
-  launching K2/K3/K2ᵀ/K3ᵀ 4/4/4/4 times (K4 0: the train forward under
-  autograd keeps torch's convolution; the evaluations 22 per chunk); a resume from the step-8
-  checkpoint under ``cudnn.deterministic`` against the uninterrupted run;
+  launching K2/K3/K4/K2ᵀ/K3ᵀ 4/4/22/4/4 times (K4 through its autograd
+  Function, whose backward is JAX's; 44 with ``remat``); one step's
+  gradients through K4 against the same step through K4's plain version
+  (the gate of ``tests/test_torch_conv_stage_grad.py``); the step's time
+  against the stages before K4 (torch's bf16 convolution), in turns; a
+  resume from the step-8 checkpoint under ``cudnn.deterministic`` against
+  the uninterrupted run;
   K2ᵀ and K3ᵀ bit-equal to their plain adjoints at the train step's shapes
   (the stencil phase holds K2 and K3 there too); train-step time, slices/s,
   peak memory and a profile of three steps; and the ``python -m
@@ -84,7 +98,8 @@ drives the port's paths at the production width (U-Net wf=6) on a
   (``synthetic.reference_state_dict``): on one 32-slice chunk, GPU f32
   logits of its first 8 slices against CPU f32, bf16 argmax against f32
   on all 32, K2/K3/K4 launches per
-  forward (4/4/31 residual, 4/0/18 upconv, 4/0/27 both; K4 0 in f32), and ``LMInferer(modelpath=<.pth>)`` on the
+  forward (4/4/31 residual, 4/0/18 upconv, 4/0/27 both, of which 2, 1 and 2
+  on the mma.sync route; K4 0 in f32), and ``LMInferer(modelpath=<.pth>)`` on the
   192-slice phantom;
 * the device mesh — ``LMInferer(mesh=)`` over ``make_mesh()`` (every card)
   and over a two-way data mesh on one card (``[cuda:0, cuda:0]``, batch 64:
@@ -139,9 +154,10 @@ call of torch's own backward op for the same function
 (``aten.avg_pool2d_backward``, ``aten.upsample_bilinear2d_backward``).
 The kernels line gives K2 and K3 per 32-slice inference chunk and K2ᵀ and
 K3ᵀ per train step of batch 8, each summed over the U-Net's four shapes,
-and K4 per chunk summed over its 22 stages (bound: the larger of its bytes
-over 3.35 TB/s and its products over the tensor cores' 989 TFLOP/s bf16,
-its float32 epilogue over 67 TFLOP/s; library: the cuDNN composition).
+and K4 per chunk in two entries, the TMA route summed over its 21 stages
+and the mma.sync route over the first (bound: the larger of its bytes over
+3.35 TB/s and its products over the tensor cores' 989 TFLOP/s bf16, its
+float32 epilogue over 67 TFLOP/s; library: the cuDNN composition).
 
 Phases: device, build, kernel, unet, stencil, convstage, fused, inferer,
 weights, cli, dicom, postdev, cohort, serve, devprep, train, variants, mesh,
@@ -182,7 +198,8 @@ K3T_REPLACES = "lungmask_tpu/models/unet.py:191"
 # K4 has no Pallas kernel to replace: XLA's bf16 convolution with a float32
 # accumulator (_conv_acc32, unet.py:61-81) and its fused epilogue (the bias,
 # :107-114; ReLU, affine and the cast, :167-172).
-K4_SOURCE = "lungmask_tpu_torch/csrc/conv_stage.cu"
+K4_SOURCE = "lungmask_tpu_torch/csrc/conv_stage.cu"  # the mma.sync route
+K4_TMA_SOURCE = "lungmask_tpu_torch/csrc/conv_stage_sm90.cu"  # the wgmma/TMA route
 K4_REPLACES = "lungmask_tpu/models/unet.py:61"
 CHUNK = 32  # the engine's default batch: 192 slices are 6 chunks
 # The U-Net's stencil inputs per chunk at wf=6 (NHWC): its four pools and
@@ -200,11 +217,12 @@ TILE_SHAPES = [(2, 37, 70, 24), (1, 5, 129, 136), (1, 1, 1, 8), (1, 1, 3, 5)]
 ADJOINT_TILE_SHAPES = [(2, 19, 13, 264), (1, 10, 9, 520)]
 VOLUME96_SHAPES = [(2, 6, 6, 1024), (2, 12, 12, 512), (2, 24, 24, 256), (2, 48, 48, 128)]
 K1_BATCHES = (1, 192, 193)
-FORWARD = ("bodymask_labels", "avg_pool2", "bilinear_up2", "conv_stage")
+FORWARD = ("bodymask_labels", "avg_pool2", "bilinear_up2", "conv_stage", "conv_stage_tma",
+           "conv_stage_mma")
 BACKWARD = ("avg_pool2_bwd", "bilinear_up2_bwd")
 # The CUDA kernels of the main path as a trace names them.
 TRACE_KERNELS = ("bodymask_kernel", "avg_pool2_kernel", "bilinear_up2_kernel",
-                 "conv_stage_kernel")
+                 "conv_stage_kernel", "conv_stage_tma_kernel", "conv_stage_halo_kernel")
 HEAP_CALLS = 3  # warm applies per process of the heap-policy reading
 HEAP_PROBE_MB = 256  # the first-touch probe's buffer, inside the 384 MB pre-faulted
 TRAIN_BATCH = 8
@@ -214,9 +232,11 @@ TRAIN_POOL_SHAPES = [(TRAIN_BATCH,) + s[1:] for s in POOL_SHAPES]
 TRAIN_UP_SHAPES = [(TRAIN_BATCH,) + s[1:] for s in UP_SHAPES]
 # The shapes whose bf16 times are summed: per inference chunk, per train step.
 TIMED = {"chunk": POOL_SHAPES + UP_SHAPES, "step": TRAIN_POOL_SHAPES + TRAIN_UP_SHAPES}
-# K4 launches per bf16 inference forward: 2 per plain conv block (10 down, 8
-# up) and the 4 projections; see _k4_per_forward for the variants.
+# K4 launches per bf16 forward (inference or train): 2 per plain conv block
+# (10 down, 8 up) and the 4 projections; see _k4_per_forward for the
+# variants. All but the first conv (cin = 1) take the TMA route.
 K4_PER_FORWARD = 22
+K4_MMA_PER_FORWARD = 1
 # K4 against its plain version: the share of bf16 outputs a step apart, and
 # an outlier's distance over its float32 arithmetic's scale
 # (conv_stage.agreement, conv_stage.SCALE_RTOL).
@@ -225,6 +245,16 @@ TRAIN_SLICES, EVAL_SLICES = 64, 32  # phantom[:64] to train, phantom[64:96] to e
 TRAIN_EPOCHS = 2  # 16 steps
 TRAIN_PEAK_LR = 1e-3  # a fresh net: default_optimizer's 1e-4 is a fine-tuning rate
 RESUME_RTOL = 1e-3
+# One bf16 step through K4 against the plain stages: the gate of
+# tests/test_torch_conv_stage_grad.py (a bf16-valued leaf: share of elements
+# more than one bf16 step apart; a float32 leaf: of its largest gradient).
+TRAIN_GRAD_FAR_SHARE = 1e-2
+TRAIN_GRAD_F32_RTOL = 1e-3
+# The same step at production width (depth 5, wf 6, batch 8, the TMA route):
+# every leaf within 2e-2 of its largest gradient (6.944e-03 measured, the
+# stages before K4 1.830e-01: PERF.md §6). At depth 5 a one-step difference
+# in 0.03% of a stage's outputs reaches the backward's cancelling sums.
+TRAIN_GRAD_RTOL = 2e-2
 WARM_DICE_MIN = 0.5  # evaluate of the crafted weights on the card, before any step
 WARM_DICE_ATOL = 1e-3  # the same, bf16 on the card against float32 on the CPU
 EXAMPLE_PAIR_SLICES = 16  # the fine-tune example's pairs: phantom[0:16], [16:32], [32:48]
@@ -392,29 +422,37 @@ def _readings(ms: float, device, host: float, summed: bool = False) -> str:
 
 
 def _ptxas_lines(report: str) -> list:
-    """One line per kernel from ptxas's report: name<dtype,vector>,
-    registers, spills."""
+    """One line per kernel from ptxas's report: name<template arguments>,
+    registers, spills, and whether ptxas serialised its wgmma
+    instructions."""
     import re
 
+    modes = ("bias", "relu_affine", "bias_f32")
+    serialized = set(re.findall(r"C7514.*?conv_stage_(tma|halo)_kernelILi(\d+)ELi(\d)E", report))
     lines, name = [], None
     for ln in report.splitlines():
         m = re.search(r"entry function '.*?(bodymask_kernel|avg_pool2_bwd_kernel|"
                       r"bilinear_up2_bwd_kernel|avg_pool2_kernel|bilinear_up2_kernel)"
                       r"(?:I(13__nv_bfloat16|f)Li(\d+)E)?", ln)
         k4 = re.search(r"entry function '.*?conv_stage_kernelILi(\d+)ELb([01])ELi(\d)E", ln)
-        if k4:  # <BN, vector path, epilogue>
+        tma = re.search(r"entry function '.*?conv_stage_(tma|halo)_kernelILi(\d+)ELi(\d)E", ln)
+        if tma:  # <BN, epilogue>
             spill = "spills not reported"
+            note = ", wgmma serialised by ptxas (C7514)" if tma.groups() in serialized else ""
+            name = f"conv_stage_{tma.group(1)}_kernel<{tma.group(2)},{modes[int(tma.group(3))]}>"
+        elif k4:  # <BN, vector path, epilogue>
+            spill, note = "spills not reported", ""
             name = f"conv_stage_kernel<{k4.group(1)},{'vec' if k4.group(2) == '1' else 'scalar'}," \
-                   f"{('bias', 'relu_affine', 'bias_f32')[int(k4.group(3))]}>"
+                   f"{modes[int(k4.group(3))]}>"
         elif m:
-            spill = "spills not reported"
+            spill, note = "spills not reported", ""
             name = m.group(1) + (f"<{'bf16' if m.group(2) != 'f' else 'f32'},{m.group(3)}>"
                                  if m.group(2) else "")
         elif name and "spill" in ln:
             spill = ",".join(ln.split(",")[1:]).strip()
         elif name and "Used" in ln:
             regs = re.search(r"Used (\d+) registers", ln)
-            lines.append(f"{name}: {regs.group(1) if regs else '?'} registers, {spill}")
+            lines.append(f"{name}: {regs.group(1) if regs else '?'} registers, {spill}{note}")
             name = None
     return lines
 
@@ -487,7 +525,8 @@ def _write_series(img, directory: str) -> None:
 
 
 def _kernels():
-    """The launch-counted wrappers: K1, K2, K3, K4, K2ᵀ, K3ᵀ."""
+    """The launch-counted wrappers: K1, K2, K3, K4 (and each of its routes),
+    K2ᵀ, K3ᵀ."""
     from lungmask_tpu_torch.ops.kernels import bodymask, conv_stage, stencil
 
     return {
@@ -495,28 +534,35 @@ def _kernels():
         "avg_pool2": stencil.avg_pool2,
         "bilinear_up2": stencil.bilinear_up2,
         "conv_stage": conv_stage.conv_stage,
+        "conv_stage_tma": conv_stage.ROUTES["tma"],
+        "conv_stage_mma": conv_stage.ROUTES["mma"],
         "avg_pool2_bwd": stencil.avg_pool2_bwd,
         "bilinear_up2_bwd": stencil.bilinear_up2_bwd,
     }
 
 
 def _k4_per_forward(residual: bool = False, upconv: bool = False, depth: int = 5) -> int:
-    """K4 launches in one bf16 inference forward of the U-Net: each conv
-    block's two stages (a residual down block's second conv and its 1×1
-    path too), each up block's projection (none with ``upconv``) and, in
-    the residual variant, the 1×1 path of each up block's input."""
+    """K4 launches in one bf16 forward of the U-Net: each conv block's two
+    stages (a residual down block's second conv and its 1×1 path too), each
+    up block's projection (none with ``upconv``) and, in the residual
+    variant, the 1×1 path of each up block's input."""
     return depth * (3 if residual else 2) + (depth - 1) * (2 + (not upconv) + residual)
 
 
 def _want(k1: int, forwards: int, k4_forwards: int = None, residual: bool = False,
           upconv: bool = False, steps: int = 0) -> dict:
     """The launches of ``forwards`` forwards (K2 4 each, K3 4 unless
-    ``upconv``), of which ``k4_forwards`` (all by default) in bf16
-    inference, and ``steps`` train steps' backwards (K2ᵀ, K3ᵀ 4 each)."""
+    ``upconv``), of which ``k4_forwards`` (all by default) in bf16 — K4 on
+    the mma.sync route for the stages on the input (cin = 1: the first conv,
+    and the residual variant's first 1×1 path), the TMA route for the rest
+    — and ``steps`` train steps' backwards (K2ᵀ, K3ᵀ 4 each)."""
     k4 = forwards if k4_forwards is None else k4_forwards
+    mma = k4 * (K4_MMA_PER_FORWARD + residual)
     return {"bodymask_labels": k1, "avg_pool2": 4 * forwards,
             "bilinear_up2": 0 if upconv else 4 * forwards,
             "conv_stage": k4 * _k4_per_forward(residual, upconv),
+            "conv_stage_tma": k4 * _k4_per_forward(residual, upconv) - mma,
+            "conv_stage_mma": mma,
             "avg_pool2_bwd": 4 * steps, "bilinear_up2_bwd": 4 * steps}
 
 
@@ -528,6 +574,18 @@ def _reset_launches() -> None:
 def _launches(names=FORWARD + BACKWARD) -> dict:
     kernels = _kernels()
     return {name: kernels[name].launches for name in names}
+
+
+class _Recorder:
+    """An optimizer for ``make_train_step`` that keeps the step's gradients
+    and moves no weight."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.clone() for k, g in grads.items()}
+        return {k: g.new_zeros(g.shape) for k, g in grads.items()}, state
 
 
 class Smoke:
@@ -585,15 +643,16 @@ class Smoke:
 
         # One compiler per source, all started together.
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=5) as ex:
-            jobs = [ex.submit(timed, fn) for fn in (k1.build, stencil.build, k4.build,
-                                                     native.native_loaded, codecs.get_lib)]
-            (_, t_k1), (_, t_st), (_, t_k4), (loaded, t_host), (codec_lib, t_codec) = [
+        with ThreadPoolExecutor(max_workers=6) as ex:
+            jobs = [ex.submit(timed, fn) for fn in (
+                k1.build, stencil.build, lambda: k4.build("mma"), lambda: k4.build("tma"),
+                native.native_loaded, codecs.get_lib)]
+            (_, t_k1), (_, t_st), (_, t_k4), (_, t_tma), (loaded, t_host), (codec_lib, t_codec) = [
                 job.result() for job in jobs]
         wall = time.perf_counter() - t0
-        print(f"[build] K1 nvcc {t_k1:.2f} s | K2+K3 nvcc {t_st:.2f} s | K4 nvcc {t_k4:.2f} s | "
-              f"host core g++ {t_host:.2f} s | DICOM codecs g++ {t_codec:.2f} s | all, in "
-              f"parallel, {wall:.2f} s")
+        print(f"[build] K1 nvcc {t_k1:.2f} s | K2+K3 nvcc {t_st:.2f} s | K4 mma.sync route nvcc "
+              f"{t_k4:.2f} s | K4 TMA route nvcc {t_tma:.2f} s | host core g++ {t_host:.2f} s | "
+              f"DICOM codecs g++ {t_codec:.2f} s | all, in parallel, {wall:.2f} s")
         print(f"[build] DICOM codec library: {codec_lib._name if codec_lib else None}")
         # The codecs fall back to pure-Python RLE without a compiler; a failed
         # build must not hide behind that fallback.
@@ -602,7 +661,7 @@ class Smoke:
                    == build_dir, f"the native DICOM codec library is not in {build_dir}")
         from lungmask_tpu_torch.ops.kernels import _nvcc
 
-        for lib in ("libbodymask", "libstencil", "libconvstage"):
+        for lib in ("libbodymask", "libstencil", "libconvstage", "libconvstage_sm90"):
             for line in _ptxas_lines(_nvcc.ptxas_report(lib)):
                 print(f"[build] ptxas {line}")
         self.check(loaded, "the native host core did not build or load")
@@ -714,15 +773,20 @@ class Smoke:
         """The bf16 forward of one 32-slice chunk of the phantom through K4
         against the same forward with K4's plain version in its place
         (float32 convolutions on the card): argmax agreement and the
-        largest logit difference, crafted and random weights."""
+        largest logit difference, crafted and random weights; the launches
+        per route; and the random weights' forward on two height bands,
+        its last features (the head's input) bit-equal to the whole
+        height's."""
         torch = self.torch
         from lungmask_tpu_torch.ops.kernels import conv_stage as k4
+        from lungmask_tpu_torch.parallel.halo import Bands
+        from lungmask_tpu_torch.parallel.mesh import split_bands
 
         random16 = unet.UNet(convert.from_jax_params(rnd, x.device), torch.bfloat16).eval()
         for name, model in (("crafted", crafted), ("random", random16)):
-            k4.conv_stage.launches = 0
+            _reset_launches()
             fast = model(x)
-            launches = k4.conv_stage.launches
+            launches = _launches(("conv_stage", "conv_stage_tma", "conv_stage_mma"))
             kernel = k4.conv_stage
             k4.conv_stage = k4.conv_stage_reference  # the plain stages, for this reading only
             try:
@@ -730,86 +794,239 @@ class Smoke:
             finally:
                 k4.conv_stage = kernel
             agree = float((fast.argmax(-1) == plain.argmax(-1)).float().mean())
-            print(f"[unet] {name} weights, 32 slices 256² bf16: K4 forward ({launches} launches) "
+            print(f"[unet] {name} weights, 32 slices 256² bf16: K4 forward (launches {launches}) "
                   f"against the plain stages' forward on the card: argmax agreement "
                   f"{agree:.6f}, max |dlogit| {float((fast - plain).abs().max()):.3e} of max "
                   f"|logit| {float(plain.abs().max()):.3e}")
-            self.check(launches == K4_PER_FORWARD, f"K4 launched {launches} times in a forward")
+            want = {"conv_stage": K4_PER_FORWARD, "conv_stage_tma": K4_PER_FORWARD - K4_MMA_PER_FORWARD,
+                    "conv_stage_mma": K4_MMA_PER_FORWARD}
+            self.check(launches == want, f"K4 launched {launches} in a forward, expected {want}")
             self.check(agree >= K4_FORWARD_AGREEMENT, f"{name}: K4 forward agreement {agree}")
+
+        feats = []
+        hook = random16.up[-1].register_forward_hook(lambda m, i, o: feats.append(o))
+        try:
+            whole = random16(x)
+            banded = random16.logits(Bands([x[:, a:b] for a, b in split_bands(x.shape[1], 2)]))
+        finally:
+            hook.remove()
+        joined = torch.cat(feats[1].parts, dim=2)
+        same = torch.equal(joined.view(torch.int16), feats[0].view(torch.int16))
+        dlogit = float((torch.cat(banded.parts, dim=1) - whole).abs().max())
+        print(f"[unet] random weights, bf16, two bands of 128 rows: the head's input bit-equal to "
+              f"the whole height's: {same}; max |dlogit| {dlogit:.3e} (the head's float32 matmul "
+              f"at the bands' shapes)")
+        self.check(same, "the banded bf16 forward differs from the whole one")
 
     def convstage(self):
         """K4 at each of the U-Net's 22 conv stages at chunk 32 (the conv
         rows of ``tools/roofline.py``: 18 3×3 with ReLU + affine, 4 1×1 bias
-        only) on seeded inputs: against its plain version (share of outputs a
-        bf16 step apart, outliers within ``conv_stage.SCALE_RTOL`` of their
-        scale), and timed in turns with the plain version and the cuDNN
-        composition the port ran before it (``library_ms``). That
-        composition's outliers, read the same way, must exceed the limit."""
+        only) on seeded inputs, both routes: the call as the U-Net makes it
+        (the TMA route at the 21 stages whose cin is a multiple of 64, the
+        mma.sync route at the first) and the mma.sync route forced, each
+        against the plain version (share of outputs a bf16 step apart,
+        outliers within ``conv_stage.SCALE_RTOL`` of their scale), with the
+        float32 ``z`` of the ReLU + affine stages against the plain one;
+        timed in turns with the plain version, the cuDNN composition the
+        port ran before K4 (``library_ms``) and cuDNN's conv alone. That
+        composition's outliers, read the same way, must exceed the limit.
+        Then the same stages at the train step's batch with ``z`` (the train
+        forward's K4 work), both routes timed; and the ragged and band
+        shapes through both routes, a band bit-equal to the whole image's
+        rows."""
         torch = self.torch
+        import torch.nn.functional as F
+
         from lungmask_tpu_torch.ops.kernels import conv_stage as k4
         from lungmask_tpu_torch.tools import roofline
 
         dev = torch.device("cuda", 0)
         gen = torch.Generator(device=dev).manual_seed(0)
-        sums = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
-        err, by_all, worst = 0.0, set(), {"max_steps": 0, "differing": 0.0, "worst": 0.0}
-        old_worst = {"differing": 0.0, "worst": 0.0}
-        for op in (o for o in roofline.build(CHUNK) if o.kind == "conv"):
-            def uniform(*shape, lo=-1.0, hi=1.0):
-                return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
 
-            x = torch.randn(op.n, op.h, op.w, op.cin, generator=gen, device=dev).to(torch.bfloat16)
-            bound = (op.k * op.k * op.cin) ** -0.5
-            w = (uniform(op.cout, op.k, op.k, op.cin) * bound).to(torch.bfloat16)
-            b = uniform(op.cout) * bound
-            aff = (uniform(op.cout, lo=0.5, hi=1.5), uniform(op.cout, lo=-0.2, hi=0.2)) \
-                if op.k == 3 else (None, None)
-            pad = (op.k // 2, op.k // 2)
-            got = k4.conv_stage(x, w, b, *aff, padding=pad)
-            want = k4.conv_stage_reference(x, w, b, *aff, padding=pad)
+        def uniform(*shape, lo=-1.0, hi=1.0):
+            return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+        def inputs(n, h, w, cin, cout, k):
+            x = torch.randn(n, h, w, cin, generator=gen, device=dev).to(torch.bfloat16)
+            bound = (k * k * cin) ** -0.5
+            wt = (uniform(cout, k, k, cin) * bound).to(torch.bfloat16)
+            b = uniform(cout) * bound
+            aff = (uniform(cout, lo=0.5, hi=1.5), uniform(cout, lo=-0.2, hi=0.2)) \
+                if k == 3 else (None, None)
+            return x, wt, b, aff
+
+        def held(x, wt, b, aff, pad, what, route=None, dtype=torch.bfloat16):
+            """One call against the plain version (z too, ReLU + affine):
+            (agreement or None, max_abs_err, output)."""
+            shape = (x.shape[0], x.shape[1] + 2 * pad[0] - wt.shape[1] + 1,
+                     x.shape[2] + 2 * pad[1] - wt.shape[2] + 1, wt.shape[0])
+            relu = aff[0] is not None and dtype == torch.bfloat16
+            z = torch.full(shape, float("nan"), device=dev) if relu else None
+            zr = torch.empty(shape, device=dev) if relu else None
+            got = k4.conv_stage(x, wt, b, *aff, padding=pad, out_dtype=dtype, z=z, _route=route)
+            want = k4.conv_stage_reference(x, wt, b, *aff, padding=pad, out_dtype=dtype, z=zr)
             torch.cuda.synchronize()
-            scale = k4.rounding_scale(x, w, b, *aff, pad)
-            a = k4.agreement(got, want, scale)
-            old = k4.agreement(k4.conv_stage_cudnn(x, w, b, *aff, padding=pad), want, scale)
             e = float((got.float() - want.float()).abs().max())
-            del want, scale
-            err = max(err, e)
-            worst = {k: max(worst[k], a[k]) for k in worst}
-            old_worst = {k: max(old_worst[k], old[k]) for k in old_worst}
+            if relu:
+                zerr = float((z - zr).abs().max() / zr.abs().max())
+                self.check(zerr <= 1e-5, f"K4's z at {what} ({route}): {zerr:.3e} of the largest")
+            if dtype == torch.float32:
+                rel = e / float(want.abs().max())
+                self.check(rel <= 1e-5, f"K4 float32 at {what} ({route}): {rel:.3e}")
+                return None, e, got
+            a = k4.agreement(got, want, k4.rounding_scale(x, wt, b, *aff, pad))
             self.check(a["differing"] <= K4_MAX_DIFFERING and a["worst"] <= k4.SCALE_RTOL,
-                       f"K4 differs from its plain version at {op.name}: {a}")
+                       f"K4 ({route or 'routed'}) differs from its plain version at {what}: {a}")
+            return a, e, got
+
+        keys = ("kernel", "mma", "plain", "library", "conv")
+        sums = {r: {k: 0.0 for k in keys + ("bound",)} for r in k4.ROUTES}
+        halo_sums = {k: 0.0 for k in keys + ("bound", "flops")}
+        err = {r: 0.0 for r in k4.ROUTES}
+        by_all = {r: {"bytes": 0.0, "operations": 0.0} for r in k4.ROUTES}
+        worst = {"max_steps": 0, "differing": 0.0, "worst": 0.0}
+        old_worst = {"differing": 0.0, "worst": 0.0}
+        stages = [o for o in roofline.build(CHUNK) if o.kind == "conv"]
+        for op in stages:
+            x, wt, b, aff = inputs(op.n, op.h, op.w, op.cin, op.cout, op.k)
+            pad = (op.k // 2, op.k // 2)
+            route = k4.route_of(x, wt)
+            a, e, got = held(x, wt, b, aff, pad, op.name)
+            am, _, got_mma = held(x, wt, b, aff, pad, op.name, route="mma")
+            # The TMA route's halo kernel takes these (csrc/conv_stage_sm90.cu).
+            halo = route == "tma" and op.k == 3 and op.w >= 64 and op.cout <= 64
+            want = k4.conv_stage_reference(x, wt, b, *aff, padding=pad)
+            old = k4.agreement(k4.conv_stage_cudnn(x, wt, b, *aff, padding=pad), want,
+                               k4.rounding_scale(x, wt, b, *aff, pad))
+            del want
+            err[route] = max(err[route], e)
+            worst = {k: max(worst[k], a[k], am[k]) for k in worst}
+            old_worst = {k: max(old_worst[k], old[k]) for k in old_worst}
             med = _in_turns(torch, {
-                "kernel": lambda: k4.conv_stage(x, w, b, *aff, padding=pad),
-                "plain": lambda: k4.conv_stage_reference(x, w, b, *aff, padding=pad),
-                "library": lambda: k4.conv_stage_cudnn(x, w, b, *aff, padding=pad)}, runs=3)
+                "kernel": lambda: k4.conv_stage(x, wt, b, *aff, padding=pad),
+                "mma": lambda: k4.conv_stage(x, wt, b, *aff, padding=pad, _route="mma"),
+                "plain": lambda: k4.conv_stage_reference(x, wt, b, *aff, padding=pad),
+                "library": lambda: k4.conv_stage_cudnn(x, wt, b, *aff, padding=pad),
+                "conv": lambda: F.conv2d(x.permute(0, 3, 1, 2), wt.permute(0, 3, 1, 2),
+                                         padding=pad)}, runs=3)
             vectors = op.cout * (3 if op.k == 3 else 1)
-            nbytes = (x.numel() + w.numel() + got.numel()) * 2 + vectors * 4
+            nbytes = (x.numel() + wt.numel() + got.numel()) * 2 + vectors * 4
             bound_ms, by = _bound_k4(nbytes, op.flops, got.numel() * (4 if op.k == 3 else 1))
-            by_all.add(by)
-            for k in ("kernel", "plain", "library"):
-                sums[k] += med[k]
-            sums["bound"] += bound_ms
-            print(f"[convstage] {op.name}: {a['differing']:.4%} of outputs a bf16 step from the "
-                  f"plain version, outliers {a['outliers']:.2e} at most {a['worst']:.2e} of their "
-                  f"scale, max_abs_err {e:.3e} | K4 {med['kernel']:.4f} ms "
-                  f"({op.flops / med['kernel'] / 1e9:.1f} TFLOP/s) | bound {bound_ms:.4f} ms "
-                  f"({by}), share {bound_ms / med['kernel']:.1%} | plain {med['plain']:.4f} ms | "
-                  f"cuDNN + float32 epilogue {med['library']:.4f} ms, {old['differing']:.2%} "
-                  f"a step off, outliers at most {old['worst']:.2e} of their scale")
-            del x, w, got
-        print(f"[convstage] per 32-slice bf16 chunk (the 22 stages): K4 {sums['kernel']:.4f} ms | "
-              f"bound {sums['bound']:.4f} ms, share {sums['bound'] / sums['kernel']:.1%} | plain "
-              f"{sums['plain']:.4f} ms | cuDNN + float32 epilogue {sums['library']:.4f} ms | at "
-              f"worst {worst['differing']:.4%} of a stage's outputs a step apart, outliers at most "
-              f"{worst['worst']:.2e} of their scale; the cuDNN composition up to "
+            by_all[route][by] += bound_ms
+            for k in keys:
+                sums[route][k] += med[k]
+                halo_sums[k] += med[k] if halo else 0.0
+            sums[route]["bound"] += bound_ms
+            halo_sums["bound"] += bound_ms if halo else 0.0
+            halo_sums["flops"] += op.flops if halo else 0.0
+            kernel = "halo" if halo else route
+            print(f"[convstage] {op.name} ({route} route, {kernel} kernel): {a['differing']:.4%} "
+                  f"of outputs a bf16 step from the plain version (mma.sync route "
+                  f"{am['differing']:.4%}), outliers {a['outliers']:.2e} at most "
+                  f"{a['worst']:.2e} of their scale, max_abs_err {e:.3e} | K4 {med['kernel']:.4f} "
+                  f"ms ({op.flops / med['kernel'] / 1e9:.1f} TFLOP/s), share {bound_ms / med['kernel']:.1%} "
+                  f"of its bound {bound_ms:.4f} ms ({by}) | "
+                  f"mma.sync route {med['mma']:.4f} ms "
+                  f"({op.flops / med['mma'] / 1e9:.1f} TFLOP/s) | plain {med['plain']:.4f} ms | "
+                  f"cuDNN + float32 epilogue {med['library']:.4f} ms, {old['differing']:.2%} a step "
+                  f"off, outliers at most {old['worst']:.2e} of their scale | cuDNN conv alone "
+                  f"{med['conv']:.4f} ms")
+            del x, wt, got, got_mma
+        total = {k: sum(sums[r][k] for r in k4.ROUTES) for k in keys + ("bound",)}
+        self.check(halo_sums["kernel"] > 0, "no stage of the U-Net took the halo kernel")
+        print(f"[convstage] the halo kernel's stages (3×3, wo ≥ 64, cout ≤ 64): K4 "
+              f"{halo_sums['kernel']:.4f} ms ({halo_sums['flops'] / halo_sums['kernel'] / 1e9:.1f} "
+              f"TFLOP/s), share {halo_sums['bound'] / halo_sums['kernel']:.1%} of their bound "
+              f"{halo_sums['bound']:.4f} ms | mma.sync route {halo_sums['mma']:.4f} ms | cuDNN conv "
+              f"alone {halo_sums['conv']:.4f} ms ({self.state['smi']})")
+        print(f"[convstage] per 32-slice bf16 chunk (the 22 stages): K4 {total['kernel']:.4f} ms "
+              f"(TMA route {sums['tma']['kernel']:.4f} ms at its 21 stages, mma.sync route "
+              f"{sums['mma']['kernel']:.4f} ms at the first) | the mma.sync route at all 22 "
+              f"{total['mma']:.4f} ms | bound {total['bound']:.4f} ms, share "
+              f"{total['bound'] / total['kernel']:.1%} | plain {total['plain']:.4f} ms | cuDNN + "
+              f"float32 epilogue {total['library']:.4f} ms | cuDNN conv alone {total['conv']:.4f} "
+              f"ms | at worst {worst['differing']:.4%} of a stage's outputs a step apart, outliers "
+              f"at most {worst['worst']:.2e} of their scale; the cuDNN composition up to "
               f"{old_worst['differing']:.2%} a step off, outliers up to {old_worst['worst']:.2e} "
               f"(limit {k4.SCALE_RTOL:.2e}; medians of 6 CUDA-event runs of {REPS} launches "
               f"each, in turns; {self.state['smi']})")
         self.check(old_worst["worst"] > k4.SCALE_RTOL,
                    f"the outlier limit passes the cuDNN composition: {old_worst}")
-        self.state["k4"] = {"max_abs_err": err, "ms": sums["kernel"], "plain_ms": sums["plain"],
-                            "bound_ms": sums["bound"], "bound_by": "+".join(sorted(by_all)),
-                            "library_ms": sums["library"]}
+        self.state["k4"] = {r: {
+            "max_abs_err": err[r], "ms": sums[r]["kernel"], "plain_ms": sums[r]["plain"],
+            "bound_ms": sums[r]["bound"], "bound_by": max(by_all[r], key=by_all[r].get),
+            "library_ms": sums[r]["library"]} for r in k4.ROUTES}
+        self._convstage_train(stages, inputs)
+        self._convstage_shapes(inputs, held)
+
+    def _convstage_train(self, stages, inputs):
+        """The 22 stages at the train step's batch, ReLU + affine stages
+        writing ``z`` (the train forward's K4 work), routed against the
+        mma.sync route, in turns."""
+        torch = self.torch
+        from lungmask_tpu_torch.ops.kernels import conv_stage as k4
+
+        sums = {"kernel": 0.0, "mma": 0.0}
+        for op in stages:
+            x, wt, b, aff = inputs(TRAIN_BATCH, op.h, op.w, op.cin, op.cout, op.k)
+            pad = (op.k // 2, op.k // 2)
+            z = torch.empty((TRAIN_BATCH, op.h, op.w, op.cout), device=x.device) \
+                if op.k == 3 else None
+            med = _in_turns(torch, {
+                "kernel": lambda: k4.conv_stage(x, wt, b, *aff, padding=pad, z=z),
+                "mma": lambda: k4.conv_stage(x, wt, b, *aff, padding=pad, z=z, _route="mma")},
+                runs=3)
+            for k in sums:
+                sums[k] += med[k]
+            del x, wt, z
+        self.state["k4_step_ms"] = sums
+        print(f"[convstage] per bf16 train step (batch {TRAIN_BATCH}, the 22 stages, z written "
+              f"at the 18 ReLU + affine ones): K4 {sums['kernel']:.4f} ms | the mma.sync route at "
+              f"all 22 {sums['mma']:.4f} ms ({self.state['smi']})")
+
+    def _convstage_shapes(self, inputs, held):
+        """The ragged shapes of ``tests/test_torch_conv_stage.py`` and bands
+        (padding (0, 1)) of the U-Net's levels, through each route that
+        takes them; each band's output bit-equal to the whole image's
+        rows."""
+        torch = self.torch
+        from lungmask_tpu_torch.ops.kernels import conv_stage as k4
+
+        ragged = [(1, 37, 45, 64, 96, 3), (2, 5, 7, 4, 3, 3), (1, 9, 130, 24, 200, 1),
+                  (3, 11, 13, 8, 130, 3), (2, 9, 7, 64, 33, 3), (1, 3, 200, 192, 72, 3),
+                  (3, 11, 13, 64, 130, 3)]
+        checked = 0
+        for n, h, w, cin, cout, k in ragged:
+            x, wt, b, aff = inputs(n, h, w, cin, cout, k)
+            pad = (k // 2, k // 2)
+            routes = ["mma"] + (["tma"] if k4.route_of(x, wt) == "tma" else [])
+            for route in routes:
+                for mode in ("relu_affine", "bias", "f32"):
+                    a = aff if mode == "relu_affine" else (None, None)
+                    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+                    held(x, wt, b, a, pad, f"{(n, h, w, cin)}->{cout} {k}x{k} {mode}", route,
+                         dtype)
+                    checked += 1
+        bands = [(TRAIN_BATCH, 256, 64, 64), (TRAIN_BATCH, 64, 256, 256),
+                 (TRAIN_BATCH, 16, 1024, 1024), (CHUNK, 32, 1024, 512)]
+        for n, hw, cin, cout in bands:
+            x, wt, b, aff = inputs(n, hw, hw, cin, cout, 3)
+            whole = k4.conv_stage(x, wt, b, *aff)
+            rows = hw // 2
+            top = torch.cat([torch.zeros_like(x[:, :1]), x[:, : rows + 1]], dim=1)
+            bottom = torch.cat([x[:, rows - 1:], torch.zeros_like(x[:, :1])], dim=1)
+            for route in ("tma", "mma"):
+                for i, band in enumerate((top, bottom)):
+                    what = f"band {i} of {(n, hw, hw, cin)}->{cout} (padding (0, 1))"
+                    _, _, got = held(band, wt, b, aff, (0, 1), what, route)
+                    if route == k4.route_of(x, wt):
+                        self.check(torch.equal(got.view(torch.int16), whole[:, i * rows:(i + 1) * rows]
+                                               .view(torch.int16)), f"{what} differs from the whole")
+                    checked += 1
+        print(f"[convstage] the ragged shapes {ragged} (bf16 ReLU + affine, bias, float32) and two "
+              f"bands of each of {bands} through each route that takes them: {checked} calls, all "
+              f"within the gate, z within 1e-5, the bands' outputs bit-equal to the whole image's "
+              f"rows")
 
     def stencil(self):
         import torch.nn.functional as F
@@ -1851,9 +2068,9 @@ class Smoke:
             losses = [h["loss"] for h in res.history if "loss" in h]
             dice = [h["eval_macro_dice"] for h in res.history if "eval_macro_dice" in h]
             chunks = 2 * -(-EVAL_SLICES // TRAIN_BATCH)  # two evaluations
-            # the steps' forwards under autograd keep torch's convolution: K4
-            # runs in the evaluations only
-            want = _want(0, steps + chunks, k4_forwards=chunks, steps=steps)
+            # K4 in every forward: the steps' (its autograd Function) and the
+            # evaluations'
+            want = _want(0, steps + chunks, steps=steps)
             print(f"[train] fit: {steps} steps of batch {TRAIN_BATCH} (wf=6, bf16, 256²) + 2 "
                   f"evaluations in {wall:.4f} s | launches {launches} | losses "
                   + ", ".join(f"{v:.5f}" for v in losses) + " | eval macro Dice "
@@ -1906,7 +2123,7 @@ class Smoke:
         state, _ = step_fn(state, im, lb)
         torch.cuda.synchronize()
         per_step = _launches()
-        want = _want(0, 1, k4_forwards=0, steps=1)
+        want = _want(0, 1, steps=1)
         self.check(per_step == want, f"one step launched {per_step}, expected {want}")
         state, _ = step_fn(state, im, lb)
         times = []
@@ -1923,8 +2140,137 @@ class Smoke:
               f"{min(times):.3f}-{max(times):.3f}), {TRAIN_BATCH * 1e3 / ms:.1f} slices/s | peak "
               f"memory {peak / 2**30:.3f} GiB ({self.state['smi']})")
         self._profile_steps(step_fn, state, im, lb)
+        self._train_k4(params, opt, im, lb)
         self._finetune_cli(params)
         self._adjoints()
+
+    def _train_k4(self, params, opt, im, lb):
+        """K4 on the train path: one bf16 step's gradients through K4's
+        Function against the same step with K4's plain version in the
+        kernel's place (the same backward) — in the configuration of
+        ``tests/test_torch_conv_stage_grad.py`` (depth 3, wf 2, 64², batch
+        2: every stage on the mma.sync route) by that test's gate, and at
+        the train phase's width and batch (the TMA route) with every leaf
+        within ``TRAIN_GRAD_RTOL`` of its largest |gradient|, a bound the
+        stages before K4 (torch's bf16 convolution) must miss; the
+        launches of a step with ``remat`` (the forward twice); and the
+        step's time against the stages before K4, in turns."""
+        import numpy as np
+
+        torch = self.torch
+        from lungmask_tpu_torch.models import convert, unet
+        from lungmask_tpu_torch.ops.kernels import conv_stage as k4
+        from lungmask_tpu_torch.train import init_train_state, make_train_step
+
+        dev = torch.device("cuda", 0)
+        apply = k4.ConvStage.apply
+        before = staticmethod(lambda x, w, b, s, t, p, d: k4.conv_stage_cudnn(x, w, b, s, t, p, d))
+
+        def leaves(tree, prefix=()):
+            if isinstance(tree, dict):
+                for k in sorted(tree):
+                    yield from leaves(tree[k], prefix + (k,))
+            elif isinstance(tree, list):
+                for i, v in enumerate(tree):
+                    yield from leaves(v, prefix + (i,))
+            else:
+                yield prefix, torch.from_numpy(np.asarray(tree, np.float32))
+
+        def grads(kind, params, im, lb):
+            rec = _Recorder()
+            state = init_train_state(params, rec, dev)
+            kernel = k4.conv_stage
+            _reset_launches()
+            if kind == "plain":
+                k4.conv_stage = k4.conv_stage_reference
+            if kind == "before K4":
+                k4.ConvStage.apply = before
+            try:
+                _, loss = make_train_step(rec, compute_dtype=torch.bfloat16)(state, im, lb)
+                torch.cuda.synchronize()
+            finally:
+                k4.conv_stage, k4.ConvStage.apply = kernel, apply
+            return float(loss), dict(leaves(convert.to_jax_params(state.model.tree(rec.grads)))), \
+                _launches(("conv_stage", "conv_stage_tma", "conv_stage_mma"))
+
+        def gate(got, want):
+            """(largest share of a weight leaf's elements more than one bf16
+            step apart, largest float32 leaf's difference over its largest,
+            largest difference of any leaf over its largest)"""
+            far, rel32, rel = 0.0, 0.0, 0.0
+            for path, w in want.items():
+                g = got[path]
+                r = float((g - w).abs().max() / w.abs().max())
+                rel = max(rel, r)
+                if path[-1] == "w":  # bf16 cotangents: steps apart
+                    steps = k4.bf16_steps(g.to(torch.bfloat16), w.to(torch.bfloat16))
+                    far = max(far, float((steps > 1).float().mean()))
+                else:
+                    rel32 = max(rel32, r)
+            return far, rel32, rel
+
+        rng = np.random.default_rng(0)
+        narrow = unet.init_params(3, depth=3, wf=2, generator=torch.Generator().manual_seed(0))
+        nim = rng.normal(0, 1, (2, 64, 64, 1)).astype(np.float32)
+        nlb = rng.integers(0, 3, (2, 64, 64)).astype(np.int64)
+        nlb[:, 16:48, 8:56] = 1
+        for name, p_, x_, y_ in (("depth 3, wf 2, 64², batch 2", narrow, nim, nlb),
+                                 (f"wf=6, 256², batch {TRAIN_BATCH}", params, im, lb)):
+            l_k4, g_k4, n_k4 = grads("K4", p_, x_, y_)
+            l_plain, g_plain, n_plain = grads("plain", p_, x_, y_)
+            _, g_old, _ = grads("before K4", p_, x_, y_)
+            far, rel32, rel = gate(g_k4, g_plain)
+            far_old, rel32_old, rel_old = gate(g_old, g_plain)
+            print(f"[train] one bf16 step ({name}) through K4 ({n_k4}) against the plain stages "
+                  f"({n_plain}): loss {l_k4:.7f} vs {l_plain:.7f} | at most {far:.4%} of a weight "
+                  f"leaf's elements more than one bf16 step apart, float32 leaves within "
+                  f"{rel32:.3e} of their largest, every leaf within {rel:.3e} | the stages before "
+                  f"K4: {far_old:.4%}, {rel32_old:.3e}, {rel_old:.3e}")
+            self.check(n_k4["conv_stage"] > 0 and n_plain["conv_stage"] == 0,
+                       f"K4 launches {n_k4}, {n_plain}")
+            if p_ is narrow:  # the CPU test's gate
+                self.check(n_k4["conv_stage_tma"] == 0, f"the narrow U-Net took the TMA route {n_k4}")
+                self.check(far <= TRAIN_GRAD_FAR_SHARE and rel32 <= TRAIN_GRAD_F32_RTOL,
+                           f"K4's gradients against the plain stages': {far}, {rel32}")
+                self.check(far_old > TRAIN_GRAD_FAR_SHARE or rel32_old > TRAIN_GRAD_F32_RTOL,
+                           "the stages before K4 pass the gate")
+            else:
+                self.check(n_k4 == {"conv_stage": K4_PER_FORWARD,
+                                    "conv_stage_tma": K4_PER_FORWARD - K4_MMA_PER_FORWARD,
+                                    "conv_stage_mma": K4_MMA_PER_FORWARD}, f"launches {n_k4}")
+                self.check(rel <= TRAIN_GRAD_RTOL < rel_old,
+                           f"K4's gradients {rel}, the stages before K4 {rel_old}, bound "
+                           f"{TRAIN_GRAD_RTOL}")
+
+        state = init_train_state(params, opt, dev)
+        _reset_launches()
+        state, _ = make_train_step(opt, compute_dtype=torch.bfloat16, remat=True)(state, im, lb)
+        torch.cuda.synchronize()
+        remat = _launches()
+        want = _want(0, 2, steps=1)
+        print(f"[train] one step with remat: launches {remat}")
+        self.check(remat == want, f"a remat step launched {remat}, expected {want}")
+
+        step_fn = make_train_step(opt, compute_dtype=torch.bfloat16)
+        times = {"K4": [], "before K4": []}
+        for kind in ("K4", "before K4", "before K4", "K4") * 3:
+            k4.ConvStage.apply = before if kind == "before K4" else apply
+            try:
+                state, _ = step_fn(state, im, lb)  # warm for this path
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step_fn(state, im, lb)
+                torch.cuda.synchronize()
+                times[kind].append(1e3 * (time.perf_counter() - t0))
+            finally:
+                k4.ConvStage.apply = apply
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        self.state["step_ms"] = med
+        print(f"[train] bf16 train step (batch {TRAIN_BATCH}, wf=6, 256²), in turns: through K4 "
+              f"{med['K4']:.3f} ms (range {min(times['K4']):.3f}-{max(times['K4']):.3f}) | the "
+              f"stages before K4 (torch's bf16 convolution, float32 epilogue) "
+              f"{med['before K4']:.3f} ms (range {min(times['before K4']):.3f}-"
+              f"{max(times['before K4']):.3f}) ({self.state['smi']})")
 
     def _warm_evaluate(self, ev):
         """``evaluate`` of the crafted ``laterality_params(wf=6)``, whose
@@ -2231,30 +2577,22 @@ class Smoke:
             runs[name] = ([h["loss"] for h in res.history if "loss" in h],
                           time.perf_counter() - t0, _launches())
         losses, wall, launches = runs["data-2"]
-        want = _want(0, 2 * steps, k4_forwards=0, steps=2 * steps)
+        want = _want(0, 2 * steps, steps=2 * steps)
         print(f"[mesh] fit(mesh=data-2 on cuda:0), {steps} bf16 steps of batch {TRAIN_BATCH} "
               f"({TRAIN_BATCH // 2} per shard, wf=6, 256²): {wall:.4f} s | launches {launches} "
-              f"(K2/K3/K2ᵀ/K3ᵀ 4/4/4/4 per shard and step) | losses "
+              f"(K2/K3/K4/K2ᵀ/K3ᵀ 4/4/22/4/4 per shard and step) | losses "
               + ", ".join(f"{v:.5f}" for v in losses) + " | unsharded fit: "
               + ", ".join(f"{v:.5f}" for v in runs["unsharded"][0])
               + f" in {runs['unsharded'][1]:.4f} s")
         self.check(launches == want, f"fit(mesh=) launches {launches}, expected {want}")
         self.check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
 
-        class Recorder:  # keeps the step's gradients, moves no weight
-            def init(self, params):
-                return None
-
-            def update(self, grads, state, params):
-                self.grads = {k: g.clone() for k, g in grads.items()}
-                return {k: torch.zeros_like(g) for k, g in grads.items()}, state
-
         im, lb = next(ds.batches(TRAIN_BATCH, seed=0))
         lb = np.array(lb)
         lb[TRAIN_BATCH // 2 :] = 0  # halves with other classes: averaging their Dice is off
 
         def grads(mesh):
-            rec = Recorder()
+            rec = _Recorder()
             state = init_train_state(params, rec, dev)
             _, loss = make_train_step(rec, mesh=mesh, compute_dtype=torch.float32)(state, im, lb)
             return float(loss), rec.grads
@@ -2272,7 +2610,7 @@ class Smoke:
             convolutions' float32 backward at batch 4 differs from batch 8's
             (6.8e-4 of a leaf's largest gradient on the CPU at wf=2, 256²);
             at the same shapes, only the order of the sums can."""
-            model = init_train_state(params, Recorder(), dev).model
+            model = init_train_state(params, _Recorder(), dev).model
             x, y = torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev).long()
             with torch.inference_mode(False), torch.enable_grad(), \
                     unet.conv_flags(torch.float32):
@@ -2594,28 +2932,20 @@ class Smoke:
         losses, wall, launches = runs["1x2"]
         ref = runs["unsharded"][0]
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
-        want = _want(0, 2 * steps, k4_forwards=0, steps=2 * steps)
+        want = _want(0, 2 * steps, steps=2 * steps)
         print(f"[space] fit(mesh=1x2), {steps} bf16 steps of batch {TRAIN_BATCH} (2 bands of 128 "
               f"rows, wf=6): {wall:.4f} s | launches {launches} "
-              f"(K2/K3/K2ᵀ/K3ᵀ 8/8/8/8 per step) "
+              f"(K2/K3/K4/K2ᵀ/K3ᵀ 8/8/44/8/8 per step) "
               f"| losses " + ", ".join(f"{v:.6f}" for v in losses) + " | unsharded fit: "
               + ", ".join(f"{v:.6f}" for v in ref) + f" in {runs['unsharded'][1]:.4f} s | "
               f"largest relative difference {rel:.3e} (bound {SPACE_LOSS_RTOL})")
         self.check(launches == want, f"fit(mesh=1x2) launches {launches}, expected {want}")
         self.check(len(losses) == steps and rel <= SPACE_LOSS_RTOL, f"losses {losses} vs {ref}")
 
-        class Recorder:  # keeps the step's gradients, moves no weight
-            def init(self, params):
-                return None
-
-            def update(self, grads, state, params):
-                self.grads = {k: g.clone() for k, g in grads.items()}
-                return {k: torch.zeros_like(g) for k, g in grads.items()}, state
-
         im, lb = next(ds.batches(TRAIN_BATCH, seed=0))
 
         def grads(mesh_):
-            rec = Recorder()
+            rec = _Recorder()
             state = init_train_state(params, rec, dev)
             _, loss = make_train_step(rec, mesh=mesh_, compute_dtype=torch.float32)(state, im, lb)
             return float(loss), rec.grads
@@ -2659,6 +2989,7 @@ class Smoke:
             "print('LAUNCHES ' + json.dumps({\n"
             "    'bodymask_labels': bodymask.bodymask_labels.launches,\n"
             "    'conv_stage': conv_stage.conv_stage.launches,\n"
+            "    **{'conv_stage_' + r: route.launches for r, route in conv_stage.ROUTES.items()},\n"
             "    **{name: getattr(stencil, name).launches for name in (\n"
             "        'avg_pool2', 'bilinear_up2', 'avg_pool2_bwd', 'bilinear_up2_bwd')}}))\n"
         )
@@ -2857,14 +3188,16 @@ def main() -> int:
         print(f"chip_smoke: FAILED phases: {', '.join(smoke.failures)}")
         return 1
     measured = {"bodymask_labels": smoke.state["k1"], **smoke.state["stencil"],
-                "conv_stage": smoke.state["k4"], **smoke.state["adjoints"]}
+                **{f"conv_stage_{r}": v for r, v in smoke.state["k4"].items()},
+                **smoke.state["adjoints"]}
     launches = {**smoke.state["launches"], **{k: smoke.state["train_launches"][k]
                                               for k in BACKWARD}}
     sources = {
         "bodymask_labels": (K1_SOURCE, K1_REPLACES),
         "avg_pool2": (STENCIL_SOURCE, K2_REPLACES),
         "bilinear_up2": (STENCIL_SOURCE, K3_REPLACES),
-        "conv_stage": (K4_SOURCE, K4_REPLACES),
+        "conv_stage_tma": (K4_TMA_SOURCE, K4_REPLACES),
+        "conv_stage_mma": (K4_SOURCE, K4_REPLACES),
         "avg_pool2_bwd": (STENCIL_SOURCE, K2T_REPLACES),
         "bilinear_up2_bwd": (STENCIL_SOURCE, K3T_REPLACES),
     }

@@ -4,7 +4,10 @@
 //   y = cast( epilogue( conv(x, w) accumulated in float32 + b ) )
 //
 // with the epilogue ReLU then the folded-BatchNorm affine (y * s + t), or
-// nothing (bias only). The output is bf16, rounded once, or float32.
+// nothing (bias only). The output is bf16, rounded once, or float32. In the
+// ReLU + affine mode the kernel also writes, given z, the float32
+// pre-activation acc + b that the stage's backward reads
+// (ops/kernels/conv_stage.py::ConvStage).
 //
 // It replaces what XLA computes for the JAX U-Net's bf16 conv stage (no
 // Pallas kernel there: XLA's convolution and its fusion):
@@ -30,6 +33,11 @@
 // H100's 989 TFLOP/s) against 2.0 GB of activations (0.6 ms at 3.35 TB/s);
 // only the first (cin = 1) and the 1x1 projections are bound by bytes.
 //
+// This file is K4's mma.sync route: the stages whose cin is not a multiple
+// of 64 (the first conv's cin = 1) or whose operands are not 16-byte
+// aligned. The rest take the wgmma/TMA route, csrc/conv_stage_sm90.cu; both
+// keep the numerics below.
+//
 // Design: an implicit GEMM, M = n*ho*wo output pixels, N = cout, K =
 // kh*kw*cin in the order (ky, kx, c). A block computes a BM x BN tile of
 // the output (BM = 128 pixels, BN = 128 channels, or 64 where cout <= 64)
@@ -54,9 +62,6 @@
 // The float32 add of each MMA's partial (mma_bf16) costs speed for
 // accuracy. __launch_bounds__(256, 2) holds a thread to 128 registers, so
 // two blocks share an SM. PERF.md has the times.
-//
-// Later work: wgmma and TMA (the full tensor-core rate), a persistent
-// grid, 16-byte stores through shared memory.
 //
 // C interface for ctypes; the launcher returns cudaGetLastError().
 
@@ -104,6 +109,7 @@ struct Params {
   const float* s;
   const float* t;
   void* y;
+  float* z;     // acc + b, float32, or null (ReLU + affine mode only)
   long long m;  // n * ho * wo
   int h, w_in, cin, cout, kw, ph, pw, ho, wo;
   int k;        // kh * kw * cin
@@ -204,14 +210,12 @@ __device__ __forceinline__ long long offset_of(const Params& p, const Pixel& px,
   return px.base + ((long long)t.dy * p.w_in + t.dx) * p.cin + t.c;
 }
 
+// The epilogue of z = acc + b: ReLU then the affine, or z itself.
 template <int MODE>
-__device__ __forceinline__ float epilogue(float v, float b, float s, float t) {
-  v = __fadd_rn(v, b);
-  if (MODE == RELU_AFFINE_BF16) {
-    v = v < 0.f ? 0.f : v;
-    v = __fadd_rn(__fmul_rn(v, s), t);
-  }
-  return v;
+__device__ __forceinline__ float epilogue(float z, float s, float t) {
+  if (MODE != RELU_AFFINE_BF16) return z;
+  const float r = z < 0.f ? 0.f : z;
+  return __fadd_rn(__fmul_rn(r, s), t);
 }
 
 template <int BN, bool VEC, int MODE>
@@ -363,9 +367,19 @@ __global__ void __launch_bounds__(THREADS, 2) conv_stage_kernel(const Params p) 
       for (int j = 0; j < NT; ++j) {
         const int n = n0 + wn * 32 + j * 8 + (lane & 3) * 2;
         if (n >= p.cout) continue;
-        const float v0 = epilogue<MODE>(acc[i][j][hr * 2], vb[j][0], vs[j][0], vt[j][0]);
-        const float v1 = epilogue<MODE>(acc[i][j][hr * 2 + 1], vb[j][1], vs[j][1], vt[j][1]);
+        const float z0 = __fadd_rn(acc[i][j][hr * 2], vb[j][0]);
+        const float z1 = __fadd_rn(acc[i][j][hr * 2 + 1], vb[j][1]);
+        const float v0 = epilogue<MODE>(z0, vs[j][0], vt[j][0]);
+        const float v1 = epilogue<MODE>(z1, vs[j][1], vt[j][1]);
         const long long at = m * p.cout + n;
+        if (MODE == RELU_AFFINE_BF16 && p.z != nullptr) {
+          if (pairs) {
+            *reinterpret_cast<float2*>(p.z + at) = make_float2(z0, z1);
+          } else {
+            p.z[at] = z0;
+            if (n + 1 < p.cout) p.z[at + 1] = z1;
+          }
+        }
         if (MODE == BIAS_F32) {
           float* y = static_cast<float*>(p.y) + at;
           if (pairs) {
@@ -438,10 +452,11 @@ extern "C" {
 // x: (n, h, w, cin) NHWC bf16, contiguous; wt: (cout, kh, kw, cin) bf16,
 // contiguous; b, s, t: float32 (cout,) (s and t read only in mode 1); y:
 // (n, h + 2 ph - kh + 1, w + 2 pw - kw + 1, cout), bf16 (modes 0, 1) or
-// float32 (mode 2), contiguous; all on `device`. Launches on `stream` and
-// does not synchronise. Returns a cudaError_t (0 = launched, or no work).
+// float32 (mode 2), contiguous; z: null or float32 of y's shape, written
+// (acc + b) in mode 1 only; all on `device`. Launches on `stream` and does
+// not synchronise. Returns a cudaError_t (0 = launched, or no work).
 int lm_conv_stage(const void* x, const void* wt, const void* b, const void* s, const void* t,
-                  void* y, int64_t n, int64_t h, int64_t w, int64_t cin, int64_t cout,
+                  void* y, void* z, int64_t n, int64_t h, int64_t w, int64_t cin, int64_t cout,
                   int64_t kh, int64_t kw, int64_t ph, int64_t pw, int mode, int device,
                   void* stream) {
   const int64_t ho = h + 2 * ph - kh + 1, wo = w + 2 * pw - kw + 1;
@@ -458,6 +473,7 @@ int lm_conv_stage(const void* x, const void* wt, const void* b, const void* s, c
   p.s = static_cast<const float*>(s);
   p.t = static_cast<const float*>(t);
   p.y = y;
+  p.z = static_cast<float*>(z);
   p.m = n * ho * wo;
   p.h = (int)h;
   p.w_in = (int)w;

@@ -8,21 +8,23 @@ into a per-channel affine (``models/convert.py``).
 * Interface: NHWC input ``(N, H, W, 1)`` and NHWC logits ``(N, H, W, K)``,
   the JAX package's layout; inside, NCHW tensors in ``channels_last`` memory.
 * Conv block: conv3x3 → ReLU → affine, twice (the reference's BN sits after
-  the ReLU). In bf16 with no gradient recorded (every inference path, and
-  ``train.loop.evaluate``) each stage is one launch of K4
+  the ReLU). In bf16 each stage is one launch of K4
   (``ops/kernels/conv_stage``): the bf16 convolution accumulated in float32,
   the float32 bias, ReLU and affine on that accumulator, one rounding to
   bf16 — JAX's ``_conv`` → ``maximum`` → ``_affine`` → ``astype``. The 1×1
   projections take K4 bias only; the residual variant's second convs and
-  its 1×1 paths take its float32 output, added in float32 as in JAX. An
+  its 1×1 paths take its float32 output, added in float32 as in JAX. Where
+  a gradient is recorded (the train step) the stage is K4's autograd
+  Function (``conv_stage.ConvStage``), whose backward is JAX's: the
+  epilogue's adjoint in float32, then ``_conv_acc32_bwd``'s bf16 dgrad
+  and wgrad; so the bf16 train forward and its gradients are JAX's. An
   inference module keeps its bf16 conv weights in channels_last memory, so
   K4's ``(cout, kh, kw, cin)`` lay-out of them is a view; a trainable
-  module's float32 weights are cast and laid out at each call. Elsewhere — float32, and a trainable module under
-  autograd — the conv is torch's (cuDNN) in the compute dtype and the
-  epilogue runs in float32 on its output: a bf16 torch conv rounds its
-  output before the bias, so the bf16 train forward still differs from JAX
-  there (ROADMAP §3: the train forward and a backward through K4 next;
-  JAX's ``_conv_acc32_bwd`` takes bf16 dgrad/wgrad).
+  module's float32 weights are cast and laid out at each call, and the
+  weight's bf16 cotangent goes back to them through that cast, as through
+  JAX's ``w.astype(x.dtype)``. In float32 the conv is torch's (cuDNN, TF32
+  off) and the epilogue runs on its output. Every ReLU takes JAX's
+  gradient, half the cotangent at 0 (:func:`_relu`).
 * Down path: 2×2 average pooling between levels, K2
   (``ops/kernels/stencil.avg_pool2``).
 * Up path: bilinear ×2 with half-pixel centres, K3
@@ -76,7 +78,7 @@ draws a fresh tree.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -191,35 +193,40 @@ def _nhwc_op(y: torch.Tensor, op, *args) -> torch.Tensor:
     return op(y.permute(0, 2, 3, 1), *args).permute(0, 3, 1, 2)
 
 
-def _k4_takes(x, *weights: torch.Tensor) -> bool:
-    """Whether K4 runs a stage on ``x`` (a tensor or bands): bf16
-    activations and no gradient recorded."""
-    if x.dtype != torch.bfloat16:
-        return False
-    if not torch.is_grad_enabled():
-        return True
-    parts = [x] if isinstance(x, torch.Tensor) else x.parts
-    return not any(t is not None and t.requires_grad for t in parts + list(weights))
+def _relu(y: torch.Tensor) -> torch.Tensor:
+    """``max(y, 0)`` with JAX's gradient: ``jnp.maximum`` gives each of its
+    arguments half the cotangent at a tie, as ``torch.maximum`` does, where
+    ``torch.relu`` gives 0."""
+    return torch.maximum(y, y.new_zeros(()))
 
 
 def _relu_affine(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    return torch.relu(y) * _vec(s) + _vec(t)
+    return _relu(y) * _vec(s) + _vec(t)
+
+
+def _k4(x: torch.Tensor, *operands) -> Callable:
+    """K4 for one call: its autograd Function where a gradient is recorded
+    through ``x`` or a weight, else the launch alone."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x,) + operands):
+        return k4.ConvStage.apply
+    return k4.conv_stage
 
 
 def _stage(module: nn.Module, x, name: str, b: torch.Tensor, s: Optional[torch.Tensor] = None,
            t: Optional[torch.Tensor] = None, out_dtype: Optional[torch.dtype] = None):
     """The convolution by the module's weight ``name`` (3×3 zero-padded, or
     1×1) + ``b``, then, given ``s`` and ``t``, ReLU and the affine, cast to
-    ``out_dtype`` (``x``'s dtype by default; float32 keeps the sum): one K4
-    launch where K4 takes it (:func:`_k4_takes`), else torch's convolution
-    and the float32 epilogue. On bands, each band padded with its
-    neighbours' rows."""
+    ``out_dtype`` (``x``'s dtype by default; float32 keeps the sum): in
+    bf16 one K4 launch (:func:`_k4`), in float32 torch's convolution and
+    the float32 epilogue. On bands, each band padded with its neighbours'
+    rows."""
     w = getattr(module, name)
     out_dtype = x.dtype if out_dtype is None else out_dtype
     k = w.shape[-1] // 2
-    if _k4_takes(x, w, b, s, t):
+    if x.dtype == torch.bfloat16:
         def op(y, wk, b, s, t, padding):
-            return _nhwc_op(y, k4.conv_stage, wk, b, s, t, padding, out_dtype)
+            return _nhwc_op(y, _k4(y, wk, b, s, t), wk, b, s, t, padding, out_dtype)
 
         wk = k4.weight_layout(w)
         if isinstance(x, torch.Tensor) or k == 0:
@@ -287,7 +294,7 @@ class ConvBlock(nn.Module):
             return _stage(self, x, "w2", self.b2, self.s_bn2, self.t_bn2)
         inp = x
         if hasattr(self, "s_bn_pre"):
-            x = _affine(_each(torch.relu, x), self.s_bn_pre, self.t_bn_pre)
+            x = _affine(_each(_relu, x), self.s_bn_pre, self.t_bn_pre)
         x = _stage(self, x, "w1", self.b1, self.s_bn1, self.t_bn1)
         x = _stage(self, x, "w2", self.b2, out_dtype=torch.float32)
         return _each(_add_to, x, self.res(inp), inp.dtype)

@@ -60,12 +60,13 @@ def build(source: str, libname: str) -> ctypes.CDLL:
 
 def ptxas_report(libname: str) -> str:
     """ptxas's lines for each kernel of ``_build/<libname>.so`` (the entry
-    function, then its registers, spills and shared memory), as the last
-    build wrote them; empty when that build left no report."""
+    function, then its registers, spills and shared memory) and its notes of
+    lost performance (e.g. serialised ``wgmma``), as the last build wrote
+    them; empty when that build left no report."""
     path = os.path.join(BUILD_DIR, f"{libname}.so.ptxas")
     if not os.path.exists(path):
         return ""
     with open(path) as fh:
         keep = [ln.strip() for ln in fh if "entry function" in ln or "Used" in ln
-                or "spill" in ln]
+                or "spill" in ln or "Performance Loss" in ln]
     return "\n".join(keep)

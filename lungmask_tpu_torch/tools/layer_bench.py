@@ -9,7 +9,9 @@ isolation, in bf16, through the port's own forward code:
 * each 3×3 conv stage (with ReLU + folded-BN affine) and each 1×1
   projection (bias only) as ``models/unet._stage`` runs it in bf16
   inference: one launch of K4 (``ops/kernels/conv_stage``), the float32
-  accumulator through the epilogue, one rounding. Beside it the split the
+  accumulator through the epilogue, one rounding; the row names the route
+  that takes it (``conv_stage.route_of``: ``tma``, the wgmma/TMA kernel,
+  where cin is a multiple of 64, else ``mma``). Beside it the split the
   port ran before K4 (``conv_stage.conv_stage_cudnn``: the cuDNN bf16 conv,
   then its float32 bias, ReLU, affine and the cast back), the cuDNN conv
   alone (``F.conv2d``), and that split's epilogue as its time less the
@@ -155,6 +157,8 @@ def run(chunk: int = 32, *, depth: int = roofline.DEPTH, wf: int = roofline.WF,
             row = {"op": op.name, "kind": op.kind, "ms": ms,
                    "achieved_tflops": op.flops / ms / 1e9, "bound_ms": bound, "bound_by": by,
                    "share": bound / ms}
+            if op.kind == "conv":
+                row["route"] = "tma" if op.cin % k4.TMA_CIN == 0 else "mma"
             if conv is not None:
                 cudnn_ms, conv_ms = _median_ms(split, device), _median_ms(conv, device)
                 row.update(cudnn_ms=cudnn_ms, conv_ms=conv_ms, epilogue_ms=cudnn_ms - conv_ms,
@@ -180,14 +184,16 @@ def report(result: dict) -> str:
     lines = [f"device {result['device']} | chunk {result['chunk']} | depth {result['depth']} "
              f"wf {result['wf']} {result['size']}² | {result['dtype']} | median of "
              f"{result['runs']} runs of {result['reps']} calls per op",
-             "(conv stages: ms is K4's; cuDNN+epi the cuDNN conv with the float32 "
-             "epilogue the port ran before K4, conv ms the cuDNN conv alone)",
+             "(conv stages: ms is K4's on the route named after the op; cuDNN+epi the cuDNN "
+             "conv with the float32 epilogue the port ran before K4, conv ms the cuDNN conv "
+             "alone)",
              f"{'op':44s} {'ms':>9s} {'TFLOP/s':>8s} {'bound ms':>9s} {'share':>7s} "
              f"{'cuDNN+epi':>9s} {'conv ms':>9s} {'epilogue ms':>11s} {'conv share':>10s}"]
     for r in result["ops"]:
         conv = (f"{r['cudnn_ms']:9.4f} {r['conv_ms']:9.4f} {r['epilogue_ms']:11.4f} "
                 f"{r['conv_share']:10.1%}" if "conv_ms" in r else "")
-        lines.append(f"{r['op']:44s} {r['ms']:9.4f} {r['achieved_tflops']:8.1f} "
+        op = f"{r['op']} [{r['route']}]" if "route" in r else r["op"]
+        lines.append(f"{op:44s} {r['ms']:9.4f} {r['achieved_tflops']:8.1f} "
                      f"{r['bound_ms']:9.4f} {r['share']:7.1%} {conv}")
     by_kind = {}
     for r in result["ops"]:

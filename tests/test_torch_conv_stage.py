@@ -16,10 +16,12 @@ Tolerances, in bf16 steps (adjacent representable values are 1 apart):
 * the port's stage before K4 (``conv_stage_cudnn``: torch's bf16
   convolution rounds before the bias) differs from JAX in at least 5% of
   the elements at every shape: the fault K4 repairs.
-* on the card (``cuda``-marked): the kernel against the plain version
-  (float32 on the card, TF32 off) by the same rule, at the U-Net's shapes
-  and at ragged ones; float32 outputs (bias only) within 1e-5 of the
-  largest. Run there with
+* on the card (``cuda``-marked): each route that takes a shape (the TMA
+  route where cin is a multiple of 64, the mma.sync route always) against
+  the plain version (float32 on the card, TF32 off) by the same rule, at
+  the U-Net's shapes and at ragged ones; float32 outputs (bias only) and
+  the ReLU + affine mode's float32 ``z`` within 1e-5 of the largest. Run
+  there with
   ``python -m pytest --noconftest -m cuda tests/test_torch_conv_stage.py``;
   JAX is imported inside the parity tests only.
 """
@@ -212,18 +214,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         k4.conv_stage(xb[:, :1], wt, bt, st, tt, padding=(0, 1))
 
 
-def _kernel_vs_plain(dev, n, h, w, cin, cout, k, seed, mode):
+def _kernel_vs_plain(dev, n, h, w, cin, cout, k, seed, mode, route):
     x, whwio, b, s, t = _inputs(n, h, w, cin, cout, k, seed)
     (xt, bt, st, tt), wt = _torch_args(x, whwio, b, s, t, dev)
     xb = xt.to(torch.bfloat16)
     aff = (st, tt) if mode == "relu_affine" else (None, None)
     dtype = torch.float32 if mode == "f32" else torch.bfloat16
-    before = k4.conv_stage.launches
-    got = k4.conv_stage(xb, wt, bt, *aff, padding=(k // 2, k // 2), out_dtype=dtype)
-    want = k4.conv_stage_reference(xb, wt, bt, *aff, padding=(k // 2, k // 2), out_dtype=dtype)
+    pad = (k // 2, k // 2)
+    shape = (n, h, w, cout)
+    z = torch.full(shape, float("nan"), device=dev) if mode == "relu_affine" else None
+    zr = torch.empty(shape, device=dev) if mode == "relu_affine" else None
+    before = k4.conv_stage.launches, k4.ROUTES[route].launches
+    got = k4.conv_stage(xb, wt, bt, *aff, padding=pad, out_dtype=dtype, z=z, _route=route)
+    want = k4.conv_stage_reference(xb, wt, bt, *aff, padding=pad, out_dtype=dtype, z=zr)
     torch.cuda.synchronize()
-    assert k4.conv_stage.launches == before + 1
-    what = f"{(n, h, w, cin)} -> {cout} {k}x{k} {mode}"
+    assert (k4.conv_stage.launches, k4.ROUTES[route].launches) == (before[0] + 1, before[1] + 1)
+    what = f"{(n, h, w, cin)} -> {cout} {k}x{k} {mode} ({route})"
+    if z is not None:
+        assert float((z - zr).abs().max()) <= 1e-5 * float(zr.abs().max()), what
     if dtype == torch.float32:  # two float32 sums in other orders
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-5 * scale, what
@@ -231,31 +239,63 @@ def _kernel_vs_plain(dev, n, h, w, cin, cout, k, seed, mode):
         _check_close(got, want, (xb, wt, bt, *aff, (k // 2, k // 2)), what)
 
 
+def _routes(cin):
+    """The routes that take a stage of ``cin`` channels (aligned operands)."""
+    return ["mma", "tma"] if cin % k4.TMA_CIN == 0 else ["mma"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout,hw,k", UNET_STAGES)
-def test_kernel_matches_plain_at_unet_shapes(cin, cout, hw, k):
+@pytest.mark.parametrize("cin,cout,hw,k,route", [s + (r,) for s in UNET_STAGES
+                                                 for r in _routes(s[0])])
+def test_kernel_matches_plain_at_unet_shapes(cin, cout, hw, k, route):
     dev = tp.cuda_device()
     _kernel_vs_plain(dev, 2, hw, hw, cin, cout, k, seed=cin + hw,
-                     mode="relu_affine" if k == 3 else "bias")
+                     mode="relu_affine" if k == 3 else "bias", route=route)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", RAGGED)
+@pytest.mark.parametrize("shape,route", [(s, r) for s in RAGGED for r in _routes(s[3])])
 @pytest.mark.parametrize("mode", ["relu_affine", "bias", "f32"])
-def test_kernel_matches_plain_at_ragged_shapes(shape, mode):
+def test_kernel_matches_plain_at_ragged_shapes(shape, route, mode):
     dev = tp.cuda_device()
-    _kernel_vs_plain(dev, *shape, seed=sum(shape), mode=mode)
+    _kernel_vs_plain(dev, *shape, seed=sum(shape), mode=mode, route=route)
+
+
+@pytest.mark.cuda
+def test_routes_by_shape_never_by_failure():
+    """The U-Net's stages take the TMA route where cin is a multiple of 64
+    and the operands are 16-byte aligned, else the mma.sync route; a view
+    that starts off a 16-byte boundary takes the mma.sync route and gives
+    the aligned call's bits."""
+    dev = tp.cuda_device()
+    x, whwio, b, s, t = _inputs(1, 8, 9, 64, 64, 3, seed=11)
+    (xt, bt, st, tt), wt = _torch_args(x, whwio, b, s, t, dev)
+    xb = xt.to(torch.bfloat16)
+    assert k4.route_of(xb, wt) == "tma"
+    assert k4.route_of(xb[..., :8], wt[..., :8].contiguous()) == "mma"
+    flat = torch.empty(xb.numel() + 1, dtype=torch.bfloat16, device=dev)
+    off = flat[1:].view(xb.shape)
+    off.copy_(xb)
+    assert k4.route_of(off, wt) == "mma"
+    before = k4.ROUTES["mma"].launches
+    got = k4.conv_stage(off, wt, bt, st, tt)
+    assert k4.ROUTES["mma"].launches == before + 1
+    assert torch.equal(got.view(torch.int16), k4.conv_stage(xb, wt, bt, st, tt,
+                                                            _route="mma").view(torch.int16))
+    with pytest.raises(ValueError, match="TMA route"):
+        k4.conv_stage(off, wt, bt, st, tt, _route="tma")
 
 
 def _counted(monkeypatch):
     """Replace K4's wrapper by a counting one (the plain version runs, as on
-    the CPU); returns the list of its calls' (kh, padding, out_dtype)."""
+    the CPU); returns the list of its calls' (kh, padding, out_dtype,
+    ReLU + affine)."""
     calls = []
     real = k4.conv_stage
 
-    def counted(x, w, b, s=None, t=None, padding=(1, 1), out_dtype=torch.bfloat16):
+    def counted(x, w, b, s=None, t=None, padding=(1, 1), out_dtype=torch.bfloat16, z=None):
         calls.append((w.shape[1], tuple(padding), out_dtype, s is not None))
-        return real(x, w, b, s, t, padding, out_dtype)
+        return real(x, w, b, s, t, padding, out_dtype, z)
 
     monkeypatch.setattr(k4, "conv_stage", counted)
     return calls
@@ -264,11 +304,12 @@ def _counted(monkeypatch):
 @pytest.mark.parametrize("residual,up_mode,want", [(False, "upsample", 22), (True, "upsample", 31),
                                                    (False, "upconv", 18), (True, "upconv", 27)])
 def test_unet_routes_its_bf16_inference_stages_through_k4(monkeypatch, residual, up_mode, want):
-    """Every conv stage of a bf16 inference forward is one K4 call: 18
-    ReLU + affine stages and 4 bias-only projections in the production
-    U-Net (the residual variant's down blocks add their second conv and
-    1×1 path, its up blocks the 1×1 path of their input, as float32
-    bias-only calls); none in float32 or under autograd."""
+    """Every conv stage of a bf16 forward is one K4 call: 18 ReLU + affine
+    stages and 4 bias-only projections in the production U-Net (the
+    residual variant's down blocks add their second conv and 1×1 path, its
+    up blocks the 1×1 path of their input, as float32 bias-only calls);
+    under autograd the same calls, through K4's Function; none in
+    float32."""
     from lungmask_tpu_torch.models import convert, synthetic, unet
 
     sd = synthetic.reference_state_dict(3, wf=2, residual=residual, up_mode=up_mode)
@@ -284,12 +325,15 @@ def test_unet_routes_its_bf16_inference_stages_through_k4(monkeypatch, residual,
     if not residual:
         assert [c for c in calls if not c[3]] == [(1, (0, 0), torch.bfloat16, False)] * (
             0 if up_mode == "upconv" else 4)
+    inference = list(calls)
     calls.clear()
     with torch.inference_mode():
         unet.UNet(tree, torch.float32)(x)
-    trainable = unet.UNet(tree, torch.bfloat16, trainable=True)
-    trainable(x).sum().backward()  # autograd: torch's convolution
     assert calls == []
+    trainable = unet.UNet(tree, torch.bfloat16, trainable=True)
+    trainable(x).sum().backward()
+    assert calls == inference
+    assert all(p.grad is not None for p in trainable.parameters())
 
 
 def test_inference_module_holds_its_conv_weights_in_k4_layout():
