@@ -5,28 +5,30 @@
 
 Builds every kernel of the port from the sources in this checkout (K1, the
 bodymask; K2 and K3, the U-Net's pooling and upsampling, and their adjoints
-K2ᵀ and K3ᵀ; K4, the U-Net's bf16 conv stage, in its two routes: the
-wgmma/TMA kernel for cin a multiple of 64 and the mma.sync kernel for the
-rest; all nvcc builds started together), checks each against its plain
+K2ᵀ and K3ᵀ; K4, the U-Net's bf16 conv stage, in its three routes: the
+direct kernel for cin under 8, the wgmma/TMA kernel for cin a multiple of
+64 and the mma.sync kernel for the rest; all nvcc builds started together), checks each against its plain
 PyTorch version on the card, then
 drives the port's paths at the production width (U-Net wf=6) on a
 192-slice 512² lung phantom made from a seed, with crafted weights:
 
 * K4 at each of the U-Net's 22 conv stages at chunk 32 (18 3×3 with ReLU +
   affine, 4 1×1 projections bias only; ``convstage`` phase), the routed call
-  (TMA at 21 stages, mma.sync at the first) and the mma.sync route forced:
+  (TMA at 21 stages, direct at the first) and the mma.sync route forced:
   the share of their bf16 outputs a step from the plain version (≤ 0.1%; an outlier, where the affine cancels, within
   2^-20 of its float32 scale) and the float32 ``z`` the backward reads,
   timed in turns with the plain version, the cuDNN conv + float32
   epilogue it replaced (``library_ms``) and cuDNN's conv alone, with each
   stage's TFLOP/s and share of its bound, the halo kernel's stages (the
   three 256² ones with cout 64) on a line of their own (the build phase
-  prints ptxas's registers, spills and wgmma serialisation notes of both
-  routes' kernels); the same stages at the train step's batch; ragged
-  shapes and bands through both routes, a band bit-equal to the whole
+  prints ptxas's registers, spills and wgmma serialisation notes of the
+  routes' kernels); the same stages at the train step's batch, the first
+  (cin = 1) also against the plain version, the cuDNN composition and
+  cuDNN's conv; ragged shapes and bands (the first conv's among them)
+  through every route that takes them, a band bit-equal to the whole
   image's rows; and in the unet phase one chunk's forward through K4
   against the same forward through K4's plain version (argmax agreement ≥
-  0.999, 22 launches: 21 TMA, 1 mma.sync) and two bands' forward against
+  0.999, 22 launches: 21 TMA, 1 direct) and two bands' forward against
   the whole height's, the head's input bit for bit;
 
 * the fused two-model path — ``LMInferer(modelname="LTRCLobes",
@@ -99,7 +101,7 @@ drives the port's paths at the production width (U-Net wf=6) on a
   logits of its first 8 slices against CPU f32, bf16 argmax against f32
   on all 32, K2/K3/K4 launches per
   forward (4/4/31 residual, 4/0/18 upconv, 4/0/27 both, of which 2, 1 and 2
-  on the mma.sync route; K4 0 in f32), and ``LMInferer(modelpath=<.pth>)`` on the
+  on the direct route; K4 0 in f32), and ``LMInferer(modelpath=<.pth>)`` on the
   192-slice phantom;
 * the device mesh — ``LMInferer(mesh=)`` over ``make_mesh()`` (every card)
   and over a two-way data mesh on one card (``[cuda:0, cuda:0]``, batch 64:
@@ -154,10 +156,13 @@ call of torch's own backward op for the same function
 (``aten.avg_pool2d_backward``, ``aten.upsample_bilinear2d_backward``).
 The kernels line gives K2 and K3 per 32-slice inference chunk and K2ᵀ and
 K3ᵀ per train step of batch 8, each summed over the U-Net's four shapes,
-and K4 per chunk in two entries, the TMA route summed over its 21 stages
-and the mma.sync route over the first (bound: the larger of its bytes over
-3.35 TB/s and its products over the tensor cores' 989 TFLOP/s bf16, its
-float32 epilogue over 67 TFLOP/s; library: the cuDNN composition).
+and K4 per chunk in three entries, the TMA route summed over its 21
+stages, the direct route at the first and the mma.sync route forced at
+that same first stage, its yardstick, with no launch on the main path
+(bound: the larger of its bytes over 3.35 TB/s and its products over the
+tensor cores' 989 TFLOP/s bf16 — over 67 TFLOP/s float32 on the direct
+route, which has no tensor cores — its float32 epilogue over 67 TFLOP/s;
+library: the cuDNN composition).
 
 Phases: device, build, kernel, unet, stencil, convstage, fused, inferer,
 weights, cli, dicom, postdev, cohort, serve, devprep, train, variants, mesh,
@@ -200,6 +205,7 @@ K3T_REPLACES = "lungmask_tpu/models/unet.py:191"
 # :107-114; ReLU, affine and the cast, :167-172).
 K4_SOURCE = "lungmask_tpu_torch/csrc/conv_stage.cu"  # the mma.sync route
 K4_TMA_SOURCE = "lungmask_tpu_torch/csrc/conv_stage_sm90.cu"  # the wgmma/TMA route
+K4_DIRECT_SOURCE = "lungmask_tpu_torch/csrc/conv_stage_direct.cu"  # the direct route
 K4_REPLACES = "lungmask_tpu/models/unet.py:61"
 CHUNK = 32  # the engine's default batch: 192 slices are 6 chunks
 # The U-Net's stencil inputs per chunk at wf=6 (NHWC): its four pools and
@@ -217,12 +223,12 @@ TILE_SHAPES = [(2, 37, 70, 24), (1, 5, 129, 136), (1, 1, 1, 8), (1, 1, 3, 5)]
 ADJOINT_TILE_SHAPES = [(2, 19, 13, 264), (1, 10, 9, 520)]
 VOLUME96_SHAPES = [(2, 6, 6, 1024), (2, 12, 12, 512), (2, 24, 24, 256), (2, 48, 48, 128)]
 K1_BATCHES = (1, 192, 193)
-FORWARD = ("bodymask_labels", "avg_pool2", "bilinear_up2", "conv_stage", "conv_stage_tma",
-           "conv_stage_mma")
+K4_COUNTS = ("conv_stage", "conv_stage_direct", "conv_stage_tma", "conv_stage_mma")
+FORWARD = ("bodymask_labels", "avg_pool2", "bilinear_up2") + K4_COUNTS
 BACKWARD = ("avg_pool2_bwd", "bilinear_up2_bwd")
 # The CUDA kernels of the main path as a trace names them.
 TRACE_KERNELS = ("bodymask_kernel", "avg_pool2_kernel", "bilinear_up2_kernel",
-                 "conv_stage_kernel", "conv_stage_tma_kernel", "conv_stage_halo_kernel")
+                 "conv_stage_direct_kernel", "conv_stage_tma_kernel", "conv_stage_halo_kernel")
 HEAP_CALLS = 3  # warm applies per process of the heap-policy reading
 HEAP_PROBE_MB = 256  # the first-touch probe's buffer, inside the 384 MB pre-faulted
 TRAIN_BATCH = 8
@@ -234,9 +240,10 @@ TRAIN_UP_SHAPES = [(TRAIN_BATCH,) + s[1:] for s in UP_SHAPES]
 TIMED = {"chunk": POOL_SHAPES + UP_SHAPES, "step": TRAIN_POOL_SHAPES + TRAIN_UP_SHAPES}
 # K4 launches per bf16 forward (inference or train): 2 per plain conv block
 # (10 down, 8 up) and the 4 projections; see _k4_per_forward for the
-# variants. All but the first conv (cin = 1) take the TMA route.
+# variants. All but the first conv (cin = 1, the direct route) take the TMA
+# route; none the mma.sync route.
 K4_PER_FORWARD = 22
-K4_MMA_PER_FORWARD = 1
+K4_DIRECT_PER_FORWARD = 1
 # K4 against its plain version: the share of bf16 outputs a step apart, and
 # an outlier's distance over its float32 arithmetic's scale
 # (conv_stage.agreement, conv_stage.SCALE_RTOL).
@@ -436,7 +443,12 @@ def _ptxas_lines(report: str) -> list:
                       r"(?:I(13__nv_bfloat16|f)Li(\d+)E)?", ln)
         k4 = re.search(r"entry function '.*?conv_stage_kernelILi(\d+)ELb([01])ELi(\d)E", ln)
         tma = re.search(r"entry function '.*?conv_stage_(tma|halo)_kernelILi(\d+)ELi(\d)E", ln)
-        if tma:  # <BN, epilogue>
+        direct = re.search(r"entry function '.*?conv_stage_direct_kernelILi(\d)ELi(\d+)E", ln)
+        if direct:  # <epilogue, K of the weights in registers (0: in shared memory)>
+            spill, note = "spills not reported", ""
+            name = (f"conv_stage_direct_kernel<{modes[int(direct.group(1))]},"
+                    f"{'K=' + direct.group(2) if direct.group(2) != '0' else 'any K'}>")
+        elif tma:  # <BN, epilogue>
             spill = "spills not reported"
             note = ", wgmma serialised by ptxas (C7514)" if tma.groups() in serialized else ""
             name = f"conv_stage_{tma.group(1)}_kernel<{tma.group(2)},{modes[int(tma.group(3))]}>"
@@ -534,8 +546,7 @@ def _kernels():
         "avg_pool2": stencil.avg_pool2,
         "bilinear_up2": stencil.bilinear_up2,
         "conv_stage": conv_stage.conv_stage,
-        "conv_stage_tma": conv_stage.ROUTES["tma"],
-        "conv_stage_mma": conv_stage.ROUTES["mma"],
+        **{f"conv_stage_{name}": route for name, route in conv_stage.ROUTES.items()},
         "avg_pool2_bwd": stencil.avg_pool2_bwd,
         "bilinear_up2_bwd": stencil.bilinear_up2_bwd,
     }
@@ -553,16 +564,18 @@ def _want(k1: int, forwards: int, k4_forwards: int = None, residual: bool = Fals
           upconv: bool = False, steps: int = 0) -> dict:
     """The launches of ``forwards`` forwards (K2 4 each, K3 4 unless
     ``upconv``), of which ``k4_forwards`` (all by default) in bf16 — K4 on
-    the mma.sync route for the stages on the input (cin = 1: the first conv,
-    and the residual variant's first 1×1 path), the TMA route for the rest
-    — and ``steps`` train steps' backwards (K2ᵀ, K3ᵀ 4 each)."""
+    the direct route for the stages on the input (cin = 1: the first conv,
+    and the residual variant's first 1×1 path), the TMA route for the rest,
+    the mma.sync route never — and ``steps`` train steps' backwards (K2ᵀ,
+    K3ᵀ 4 each)."""
     k4 = forwards if k4_forwards is None else k4_forwards
-    mma = k4 * (K4_MMA_PER_FORWARD + residual)
+    direct = k4 * (K4_DIRECT_PER_FORWARD + residual)
     return {"bodymask_labels": k1, "avg_pool2": 4 * forwards,
             "bilinear_up2": 0 if upconv else 4 * forwards,
             "conv_stage": k4 * _k4_per_forward(residual, upconv),
-            "conv_stage_tma": k4 * _k4_per_forward(residual, upconv) - mma,
-            "conv_stage_mma": mma,
+            "conv_stage_direct": direct,
+            "conv_stage_tma": k4 * _k4_per_forward(residual, upconv) - direct,
+            "conv_stage_mma": 0,
             "avg_pool2_bwd": 4 * steps, "bilinear_up2_bwd": 4 * steps}
 
 
@@ -643,16 +656,17 @@ class Smoke:
 
         # One compiler per source, all started together.
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=6) as ex:
+        with ThreadPoolExecutor(max_workers=7) as ex:
             jobs = [ex.submit(timed, fn) for fn in (
                 k1.build, stencil.build, lambda: k4.build("mma"), lambda: k4.build("tma"),
-                native.native_loaded, codecs.get_lib)]
-            (_, t_k1), (_, t_st), (_, t_k4), (_, t_tma), (loaded, t_host), (codec_lib, t_codec) = [
-                job.result() for job in jobs]
+                lambda: k4.build("direct"), native.native_loaded, codecs.get_lib)]
+            ((_, t_k1), (_, t_st), (_, t_k4), (_, t_tma), (_, t_direct), (loaded, t_host),
+             (codec_lib, t_codec)) = [job.result() for job in jobs]
         wall = time.perf_counter() - t0
         print(f"[build] K1 nvcc {t_k1:.2f} s | K2+K3 nvcc {t_st:.2f} s | K4 mma.sync route nvcc "
-              f"{t_k4:.2f} s | K4 TMA route nvcc {t_tma:.2f} s | host core g++ {t_host:.2f} s | "
-              f"DICOM codecs g++ {t_codec:.2f} s | all, in parallel, {wall:.2f} s")
+              f"{t_k4:.2f} s | K4 TMA route nvcc {t_tma:.2f} s | K4 direct route nvcc "
+              f"{t_direct:.2f} s | host core g++ {t_host:.2f} s | DICOM codecs g++ "
+              f"{t_codec:.2f} s | all, in parallel, {wall:.2f} s")
         print(f"[build] DICOM codec library: {codec_lib._name if codec_lib else None}")
         # The codecs fall back to pure-Python RLE without a compiler; a failed
         # build must not hide behind that fallback.
@@ -661,7 +675,8 @@ class Smoke:
                    == build_dir, f"the native DICOM codec library is not in {build_dir}")
         from lungmask_tpu_torch.ops.kernels import _nvcc
 
-        for lib in ("libbodymask", "libstencil", "libconvstage", "libconvstage_sm90"):
+        for lib in ("libbodymask", "libstencil", "libconvstage", "libconvstage_sm90",
+                    "libconvstage_direct"):
             for line in _ptxas_lines(_nvcc.ptxas_report(lib)):
                 print(f"[build] ptxas {line}")
         self.check(loaded, "the native host core did not build or load")
@@ -786,7 +801,7 @@ class Smoke:
         for name, model in (("crafted", crafted), ("random", random16)):
             _reset_launches()
             fast = model(x)
-            launches = _launches(("conv_stage", "conv_stage_tma", "conv_stage_mma"))
+            launches = _launches(K4_COUNTS)
             kernel = k4.conv_stage
             k4.conv_stage = k4.conv_stage_reference  # the plain stages, for this reading only
             try:
@@ -798,8 +813,7 @@ class Smoke:
                   f"against the plain stages' forward on the card: argmax agreement "
                   f"{agree:.6f}, max |dlogit| {float((fast - plain).abs().max()):.3e} of max "
                   f"|logit| {float(plain.abs().max()):.3e}")
-            want = {"conv_stage": K4_PER_FORWARD, "conv_stage_tma": K4_PER_FORWARD - K4_MMA_PER_FORWARD,
-                    "conv_stage_mma": K4_MMA_PER_FORWARD}
+            want = {k: _want(0, 1)[k] for k in K4_COUNTS}
             self.check(launches == want, f"K4 launched {launches} in a forward, expected {want}")
             self.check(agree >= K4_FORWARD_AGREEMENT, f"{name}: K4 forward agreement {agree}")
 
@@ -821,18 +835,19 @@ class Smoke:
     def convstage(self):
         """K4 at each of the U-Net's 22 conv stages at chunk 32 (the conv
         rows of ``tools/roofline.py``: 18 3×3 with ReLU + affine, 4 1×1 bias
-        only) on seeded inputs, both routes: the call as the U-Net makes it
-        (the TMA route at the 21 stages whose cin is a multiple of 64, the
-        mma.sync route at the first) and the mma.sync route forced, each
-        against the plain version (share of outputs a bf16 step apart,
-        outliers within ``conv_stage.SCALE_RTOL`` of their scale), with the
-        float32 ``z`` of the ReLU + affine stages against the plain one;
-        timed in turns with the plain version, the cuDNN composition the
-        port ran before K4 (``library_ms``) and cuDNN's conv alone. That
-        composition's outliers, read the same way, must exceed the limit.
-        Then the same stages at the train step's batch with ``z`` (the train
-        forward's K4 work), both routes timed; and the ragged and band
-        shapes through both routes, a band bit-equal to the whole image's
+        only) on seeded inputs: the call as the U-Net makes it (the TMA
+        route at the 21 stages whose cin is a multiple of 64, the direct
+        route at the first) and the mma.sync route forced, each against the
+        plain version (share of outputs a bf16 step apart, outliers within
+        ``conv_stage.SCALE_RTOL`` of their scale), with the float32 ``z`` of
+        the ReLU + affine stages against the plain one; timed in turns with
+        the plain version, the cuDNN composition the port ran before K4
+        (``library_ms``) and cuDNN's conv alone. That composition's
+        outliers, read the same way, must exceed the limit. Then the same
+        stages at the train step's batch with ``z`` (the train forward's K4
+        work), routed and forced timed, the first also held and timed
+        against the rest; and the ragged and band shapes through every
+        route that takes them, a band bit-equal to the whole image's
         rows."""
         torch = self.torch
         import torch.nn.functional as F
@@ -886,13 +901,14 @@ class Smoke:
         by_all = {r: {"bytes": 0.0, "operations": 0.0} for r in k4.ROUTES}
         worst = {"max_steps": 0, "differing": 0.0, "worst": 0.0}
         old_worst = {"differing": 0.0, "worst": 0.0}
+        forced = None
         stages = [o for o in roofline.build(CHUNK) if o.kind == "conv"]
         for op in stages:
             x, wt, b, aff = inputs(op.n, op.h, op.w, op.cin, op.cout, op.k)
             pad = (op.k // 2, op.k // 2)
             route = k4.route_of(x, wt)
             a, e, got = held(x, wt, b, aff, pad, op.name)
-            am, _, got_mma = held(x, wt, b, aff, pad, op.name, route="mma")
+            am, em, got_mma = held(x, wt, b, aff, pad, op.name, route="mma")
             # The TMA route's halo kernel takes these (csrc/conv_stage_sm90.cu).
             halo = route == "tma" and op.k == 3 and op.w >= 64 and op.cout <= 64
             want = k4.conv_stage_reference(x, wt, b, *aff, padding=pad)
@@ -911,12 +927,19 @@ class Smoke:
                                          padding=pad)}, runs=3)
             vectors = op.cout * (3 if op.k == 3 else 1)
             nbytes = (x.numel() + wt.numel() + got.numel()) * 2 + vectors * 4
-            bound_ms, by = _bound_k4(nbytes, op.flops, got.numel() * (4 if op.k == 3 else 1))
+            epilogue = got.numel() * (4 if op.k == 3 else 1)
+            mma_bound, mma_by = _bound_k4(nbytes, op.flops, epilogue)
+            # The direct route's products are float32 multiply-adds, no tensor cores.
+            bound_ms, by = (_bound_k4(nbytes, 0.0, op.flops + epilogue) if route == "direct"
+                            else (mma_bound, mma_by))
             by_all[route][by] += bound_ms
             for k in keys:
                 sums[route][k] += med[k]
                 halo_sums[k] += med[k] if halo else 0.0
             sums[route]["bound"] += bound_ms
+            if route == "direct":  # the mma.sync route, forced at the stage it took before
+                forced = {"max_abs_err": em, "ms": med["mma"], "plain_ms": med["plain"],
+                          "bound_ms": mma_bound, "bound_by": mma_by, "library_ms": med["library"]}
             halo_sums["bound"] += bound_ms if halo else 0.0
             halo_sums["flops"] += op.flops if halo else 0.0
             kernel = "halo" if halo else route
@@ -927,7 +950,8 @@ class Smoke:
                   f"ms ({op.flops / med['kernel'] / 1e9:.1f} TFLOP/s), share {bound_ms / med['kernel']:.1%} "
                   f"of its bound {bound_ms:.4f} ms ({by}) | "
                   f"mma.sync route {med['mma']:.4f} ms "
-                  f"({op.flops / med['mma'] / 1e9:.1f} TFLOP/s) | plain {med['plain']:.4f} ms | "
+                  f"({op.flops / med['mma'] / 1e9:.1f} TFLOP/s, share {mma_bound / med['mma']:.1%} "
+                  f"of {mma_bound:.4f} ms) | plain {med['plain']:.4f} ms | "
                   f"cuDNN + float32 epilogue {med['library']:.4f} ms, {old['differing']:.2%} a step "
                   f"off, outliers at most {old['worst']:.2e} of their scale | cuDNN conv alone "
                   f"{med['conv']:.4f} ms")
@@ -940,8 +964,9 @@ class Smoke:
               f"{halo_sums['bound']:.4f} ms | mma.sync route {halo_sums['mma']:.4f} ms | cuDNN conv "
               f"alone {halo_sums['conv']:.4f} ms ({self.state['smi']})")
         print(f"[convstage] per 32-slice bf16 chunk (the 22 stages): K4 {total['kernel']:.4f} ms "
-              f"(TMA route {sums['tma']['kernel']:.4f} ms at its 21 stages, mma.sync route "
-              f"{sums['mma']['kernel']:.4f} ms at the first) | the mma.sync route at all 22 "
+              f"(TMA route {sums['tma']['kernel']:.4f} ms at its 21 stages, direct route "
+              f"{sums['direct']['kernel']:.4f} ms at the first, the mma.sync route forced there "
+              f"{sums['direct']['mma']:.4f} ms) | the mma.sync route at all 22 "
               f"{total['mma']:.4f} ms | bound {total['bound']:.4f} ms, share "
               f"{total['bound'] / total['kernel']:.1%} | plain {total['plain']:.4f} ms | cuDNN + "
               f"float32 epilogue {total['library']:.4f} ms | cuDNN conv alone {total['conv']:.4f} "
@@ -952,18 +977,25 @@ class Smoke:
               f"each, in turns; {self.state['smi']})")
         self.check(old_worst["worst"] > k4.SCALE_RTOL,
                    f"the outlier limit passes the cuDNN composition: {old_worst}")
+        self.check(sums["mma"]["kernel"] == 0.0, "a U-Net stage took the mma.sync route")
+        self.check(forced is not None, "no U-Net stage took the direct route")
         self.state["k4"] = {r: {
             "max_abs_err": err[r], "ms": sums[r]["kernel"], "plain_ms": sums[r]["plain"],
             "bound_ms": sums[r]["bound"], "bound_by": max(by_all[r], key=by_all[r].get),
-            "library_ms": sums[r]["library"]} for r in k4.ROUTES}
-        self._convstage_train(stages, inputs)
+            "library_ms": sums[r]["library"]} for r in ("direct", "tma")}
+        self.state["k4"]["mma"] = forced
+        self._convstage_train(stages, inputs, held)
         self._convstage_shapes(inputs, held)
 
-    def _convstage_train(self, stages, inputs):
+    def _convstage_train(self, stages, inputs, held):
         """The 22 stages at the train step's batch, ReLU + affine stages
         writing ``z`` (the train forward's K4 work), routed against the
-        mma.sync route, in turns."""
+        mma.sync route, in turns; the first stage (the direct route) also
+        held against the plain version and timed beside it, the cuDNN
+        composition and cuDNN's conv alone."""
         torch = self.torch
+        import torch.nn.functional as F
+
         from lungmask_tpu_torch.ops.kernels import conv_stage as k4
 
         sums = {"kernel": 0.0, "mma": 0.0}
@@ -972,12 +1004,33 @@ class Smoke:
             pad = (op.k // 2, op.k // 2)
             z = torch.empty((TRAIN_BATCH, op.h, op.w, op.cout), device=x.device) \
                 if op.k == 3 else None
-            med = _in_turns(torch, {
+            fns = {
                 "kernel": lambda: k4.conv_stage(x, wt, b, *aff, padding=pad, z=z),
-                "mma": lambda: k4.conv_stage(x, wt, b, *aff, padding=pad, z=z, _route="mma")},
-                runs=3)
+                "mma": lambda: k4.conv_stage(x, wt, b, *aff, padding=pad, z=z, _route="mma")}
+            first = k4.route_of(x, wt) == "direct"
+            if first:
+                a, e, _ = held(x, wt, b, aff, pad, f"{op.name} at batch {TRAIN_BATCH}")
+                zr = torch.empty_like(z)
+                fns.update({
+                    "plain": lambda: k4.conv_stage_reference(x, wt, b, *aff, padding=pad, z=zr),
+                    "library": lambda: k4.conv_stage_cudnn(x, wt, b, *aff, padding=pad),
+                    "conv": lambda: F.conv2d(x.permute(0, 3, 1, 2), wt.permute(0, 3, 1, 2),
+                                             padding=pad)})
+            med = _in_turns(torch, fns, runs=3)
             for k in sums:
                 sums[k] += med[k]
+            if first:
+                out = TRAIN_BATCH * op.h * op.w * op.cout
+                nbytes = (x.numel() + wt.numel() + out) * 2 + out * 4 + op.cout * 3 * 4
+                bound_ms, by = _bound_k4(nbytes, 0.0, op.flops * TRAIN_BATCH / op.n + out * 4)
+                print(f"[convstage] {op.name} at batch {TRAIN_BATCH} with z (direct route): "
+                      f"{a['differing']:.4%} of outputs a bf16 step from the plain version, "
+                      f"outliers at most {a['worst']:.2e} of their scale, max_abs_err {e:.3e}, z "
+                      f"within 1e-5 | K4 {med['kernel']:.4f} ms, share "
+                      f"{bound_ms / med['kernel']:.1%} of its bound {bound_ms:.4f} ms ({by}) | "
+                      f"mma.sync route {med['mma']:.4f} ms | plain {med['plain']:.4f} ms | cuDNN + "
+                      f"float32 epilogue (no z) {med['library']:.4f} ms | cuDNN conv alone "
+                      f"{med['conv']:.4f} ms ({self.state['smi']})")
             del x, wt, z
         self.state["k4_step_ms"] = sums
         print(f"[convstage] per bf16 train step (batch {TRAIN_BATCH}, the 22 stages, z written "
@@ -986,28 +1039,28 @@ class Smoke:
 
     def _convstage_shapes(self, inputs, held):
         """The ragged shapes of ``tests/test_torch_conv_stage.py`` and bands
-        (padding (0, 1)) of the U-Net's levels, through each route that
-        takes them; each band's output bit-equal to the whole image's
-        rows."""
+        (padding (0, 1)) of the U-Net's levels, the first conv's (cin = 1)
+        among them, through each route that takes them; each band's output
+        on its own route bit-equal to the whole image's rows."""
         torch = self.torch
         from lungmask_tpu_torch.ops.kernels import conv_stage as k4
 
         ragged = [(1, 37, 45, 64, 96, 3), (2, 5, 7, 4, 3, 3), (1, 9, 130, 24, 200, 1),
                   (3, 11, 13, 8, 130, 3), (2, 9, 7, 64, 33, 3), (1, 3, 200, 192, 72, 3),
-                  (3, 11, 13, 64, 130, 3)]
+                  (3, 11, 13, 64, 130, 3), (1, 7, 300, 1, 130, 3), (2, 33, 19, 3, 64, 1),
+                  (2, 256, 256, 1, 64, 1)]
         checked = 0
         for n, h, w, cin, cout, k in ragged:
             x, wt, b, aff = inputs(n, h, w, cin, cout, k)
             pad = (k // 2, k // 2)
-            routes = ["mma"] + (["tma"] if k4.route_of(x, wt) == "tma" else [])
-            for route in routes:
+            for route in dict.fromkeys(("mma", k4.route_of(x, wt))):
                 for mode in ("relu_affine", "bias", "f32"):
                     a = aff if mode == "relu_affine" else (None, None)
                     dtype = torch.float32 if mode == "f32" else torch.bfloat16
                     held(x, wt, b, a, pad, f"{(n, h, w, cin)}->{cout} {k}x{k} {mode}", route,
                          dtype)
                     checked += 1
-        bands = [(TRAIN_BATCH, 256, 64, 64), (TRAIN_BATCH, 64, 256, 256),
+        bands = [(CHUNK, 256, 1, 64), (TRAIN_BATCH, 256, 64, 64), (TRAIN_BATCH, 64, 256, 256),
                  (TRAIN_BATCH, 16, 1024, 1024), (CHUNK, 32, 1024, 512)]
         for n, hw, cin, cout in bands:
             x, wt, b, aff = inputs(n, hw, hw, cin, cout, 3)
@@ -1015,7 +1068,7 @@ class Smoke:
             rows = hw // 2
             top = torch.cat([torch.zeros_like(x[:, :1]), x[:, : rows + 1]], dim=1)
             bottom = torch.cat([x[:, rows - 1:], torch.zeros_like(x[:, :1])], dim=1)
-            for route in ("tma", "mma"):
+            for route in dict.fromkeys((k4.route_of(x, wt), "mma")):
                 for i, band in enumerate((top, bottom)):
                     what = f"band {i} of {(n, hw, hw, cin)}->{cout} (padding (0, 1))"
                     _, _, got = held(band, wt, b, aff, (0, 1), what, route)
@@ -1714,8 +1767,10 @@ class Smoke:
         self.check(np.array_equal(m, masks[1]), "the 2 device-mode masks differ")
         self.check(m.shape == vol.shape and m.dtype == np.uint8, f"mask {m.shape} {m.dtype}")
         self.check(set(labels) <= {0, 1, 2} and m.any(), f"device-mode labels {labels}")
-        self.check(all(launches[k] > 0 for k in FORWARD)
-                   and not any(launches[k] for k in BACKWARD), f"launches {launches}")
+        # Each forward kernel of the main path launched, the mma.sync route and the
+        # adjoints not.
+        self.check(all((launches[k] > 0) == (n > 0) for k, n in _want(1, 1).items()),
+                   f"launches {launches}")
         cmp = compare_masks(m, exact)
         print(f"[postdev] launches in the 2 device-mode calls: {launches} | labels {labels} | "
               f"device vs exact: voxel agreement {cmp.voxel_accuracy:.6f}, macro Dice "
@@ -1880,8 +1935,10 @@ class Smoke:
               f"s: " + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()
                                 if k.endswith("seconds")))
         self.check(all(r is not None and r[0] == 200 for r in results), "a request failed")
-        self.check(all(launches[k] > 0 for k in FORWARD)
-                   and not any(launches[k] for k in BACKWARD), f"launches {launches}")
+        # Each forward kernel of the main path launched, the mma.sync route and the
+        # adjoints not.
+        self.check(all((launches[k] > 0) == (n > 0) for k, n in _want(1, 1).items()),
+                   f"launches {launches}")
         for (status, body, ctype), path in zip(results, paths):
             if ctype == "application/zip":  # the .dcm answer: a zipped series
                 out = os.path.join(self.state["tmp"], "serve_dcm")
@@ -2149,7 +2206,8 @@ class Smoke:
         Function against the same step with K4's plain version in the
         kernel's place (the same backward) — in the configuration of
         ``tests/test_torch_conv_stage_grad.py`` (depth 3, wf 2, 64², batch
-        2: every stage on the mma.sync route) by that test's gate, and at
+        2: the direct route below 8 channels, the mma.sync route above) by
+        that test's gate, and at
         the train phase's width and batch (the TMA route) with every leaf
         within ``TRAIN_GRAD_RTOL`` of its largest |gradient|, a bound the
         stages before K4 (torch's bf16 convolution) must miss; the
@@ -2191,7 +2249,7 @@ class Smoke:
             finally:
                 k4.conv_stage, k4.ConvStage.apply = kernel, apply
             return float(loss), dict(leaves(convert.to_jax_params(state.model.tree(rec.grads)))), \
-                _launches(("conv_stage", "conv_stage_tma", "conv_stage_mma"))
+                _launches(K4_COUNTS)
 
         def gate(got, want):
             """(largest share of a weight leaf's elements more than one bf16
@@ -2235,9 +2293,7 @@ class Smoke:
                 self.check(far_old > TRAIN_GRAD_FAR_SHARE or rel32_old > TRAIN_GRAD_F32_RTOL,
                            "the stages before K4 pass the gate")
             else:
-                self.check(n_k4 == {"conv_stage": K4_PER_FORWARD,
-                                    "conv_stage_tma": K4_PER_FORWARD - K4_MMA_PER_FORWARD,
-                                    "conv_stage_mma": K4_MMA_PER_FORWARD}, f"launches {n_k4}")
+                self.check(n_k4 == {k: _want(0, 1)[k] for k in K4_COUNTS}, f"launches {n_k4}")
                 self.check(rel <= TRAIN_GRAD_RTOL < rel_old,
                            f"K4's gradients {rel}, the stages before K4 {rel_old}, bound "
                            f"{TRAIN_GRAD_RTOL}")
@@ -3196,6 +3252,7 @@ def main() -> int:
         "bodymask_labels": (K1_SOURCE, K1_REPLACES),
         "avg_pool2": (STENCIL_SOURCE, K2_REPLACES),
         "bilinear_up2": (STENCIL_SOURCE, K3_REPLACES),
+        "conv_stage_direct": (K4_DIRECT_SOURCE, K4_REPLACES),
         "conv_stage_tma": (K4_TMA_SOURCE, K4_REPLACES),
         "conv_stage_mma": (K4_SOURCE, K4_REPLACES),
         "avg_pool2_bwd": (STENCIL_SOURCE, K2T_REPLACES),

@@ -33,10 +33,11 @@
 // H100's 989 TFLOP/s) against 2.0 GB of activations (0.6 ms at 3.35 TB/s);
 // only the first (cin = 1) and the 1x1 projections are bound by bytes.
 //
-// This file is K4's mma.sync route: the stages whose cin is not a multiple
-// of 64 (the first conv's cin = 1) or whose operands are not 16-byte
-// aligned. The rest take the wgmma/TMA route, csrc/conv_stage_sm90.cu; both
-// keep the numerics below.
+// This file is K4's mma.sync route: the stages whose cin is neither under
+// 8 nor a multiple of 64, or whose operands are not 16-byte aligned, and any
+// stage when forced (the yardstick). Cin under 8 (the first conv's cin = 1)
+// takes the direct route, csrc/conv_stage_direct.cu; cin a multiple of 64
+// the wgmma/TMA route, csrc/conv_stage_sm90.cu; all keep the numerics below.
 //
 // Design: an implicit GEMM, M = n*ho*wo output pixels, N = cout, K =
 // kh*kw*cin in the order (ky, kx, c). A block computes a BM x BN tile of

@@ -19,12 +19,20 @@ element in seven of every stage then differs from JAX's. In the ReLU +
 affine mode the kernel also writes, given ``z``, the float32
 pre-activation ``acc + b`` that the backward reads.
 
-What bounds it on the H100: operations. The U-Net's 18 3×3 convs do 3.08
-TFLOP per 32-slice chunk at 256² (3.1 ms at 989 TFLOP/s bf16) against 2.0 GB
-of activations (0.6 ms at 3.35 TB/s); only the first (cin = 1) and the 1×1
-projections are bound by bytes. Two routes, chosen by shape
+What bounds it on the H100: operations at all but the first conv. The
+U-Net's 18 3×3 convs do 3.08 TFLOP per 32-slice chunk at 256² (3.1 ms at
+989 TFLOP/s bf16) against 2.0 GB of activations (0.6 ms at 3.35 TB/s);
+the first (cin = 1, whose cost is its 268 MB of stores) and the 1×1
+projections are bound by bytes. Three routes, chosen by shape
 (:func:`route_of`), never by a failure:
 
+* ``"direct"`` (``csrc/conv_stage_direct.cu``), cin under 8 with kernels
+  up to 3×3 — the first conv and the residual variant's first 1×1
+  path: no tensor cores and no K padding; a thread computes one pixel's 8
+  channels with float32 multiply-adds on the CUDA cores and writes them as
+  one 16-byte vector, a warp 512 contiguous bytes; a persistent grid walks
+  row tiles staged in shared memory with their halo, the weights loaded
+  once per block;
 * ``"tma"`` (``csrc/conv_stage_sm90.cu``), cin a multiple of 64 and x and
   the weight on 16-byte boundaries — 21 of the U-Net's 22 stages and every
   band of them: an implicit GEMM on ``wgmma`` fed by TMA (256-pixel by
@@ -34,18 +42,19 @@ projections are bound by bytes. Two routes, chosen by shape
   persistent grid; at the wide 3×3 stages with cout ≤ 64 the tile with its
   halo is loaded once per channel slice and the nine taps read as shifted
   views of it);
-* ``"mma"`` (``csrc/conv_stage.cu``), the rest (the first conv's cin = 1,
-  other cins, unaligned views): an implicit GEMM on ``mma.sync`` with
-  16-byte ``cp.async`` tiles, or element loads where cin % 8 != 0.
+* ``"mma"`` (``csrc/conv_stage.cu``), the rest (other cins, unaligned
+  views), and any stage when forced (``_route="mma"``, the yardstick): an
+  implicit GEMM on ``mma.sync`` with 16-byte ``cp.async`` tiles, or element
+  loads where cin % 8 != 0.
 
-Both keep the float32 accumulator on the chip through the epilogue and
-store each output once, and both hold K4's numerics: every output sums its
-K products in one order, whatever its tile or band — the tensor cores'
-partials added to the float32 accumulator by round-to-nearest adds in K
-order, 16 products a partial on the mma.sync route, 64 (one 64-channel
-slice) on the TMA route — so banded and whole forwards give the
-same bits, and both stay within K4's gate of the plain version
-(:func:`agreement`).
+All keep the float32 accumulator on the chip through the epilogue and
+store each output once, and all hold K4's numerics: every output sums its
+K products in one order, whatever its tile or band — the direct route
+product by product in the order (ky, kx, c), the tensor cores' partials
+added to the float32 accumulator by round-to-nearest adds in K order, 16
+products a partial on the mma.sync route, 64 (one 64-channel slice) on the
+TMA route — so banded and whole forwards give the same bits, and each
+stays within K4's gate of the plain version (:func:`agreement`).
 
 The train forward: :class:`ConvStage` is K4 under autograd, its backward
 JAX's: the epilogue's adjoint in float32 (with ``jnp.maximum``'s 0.5 at
@@ -76,24 +85,29 @@ from lungmask_tpu_torch.ops.kernels import _nvcc, count_launch
 
 SOURCE = os.path.join(_nvcc.CSRC, "conv_stage.cu")
 SOURCE_SM90 = os.path.join(_nvcc.CSRC, "conv_stage_sm90.cu")
+SOURCE_DIRECT = os.path.join(_nvcc.CSRC, "conv_stage_direct.cu")
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # The kernels' epilogues (csrc/conv_stage*.cu).
 BIAS, RELU_AFFINE, BIAS_F32 = 0, 1, 2
 # lm_conv_stage_tma's return codes beyond cudaError_t.
 _ENCODE_FAILED, _NO_ENCODER = 100000, 200000
 TMA_CIN = 64  # the TMA route's K slice: cin must be a multiple of it
+DIRECT_CIN = 8  # the direct route takes cin below it ...
+DIRECT_KSIZE = 3  # ... and kh, kw up to it (csrc/conv_stage_direct.cu)
 
 
 class Route:
-    """One of K4's two kernels: its library and its launch count."""
+    """One of K4's three kernels: its library, its C entry point and its
+    launch count."""
 
-    def __init__(self, name: str, libname: str, source: str):
-        self.name, self.libname, self.source = name, libname, source
+    def __init__(self, name: str, libname: str, source: str, symbol: str):
+        self.name, self.libname, self.source, self.symbol = name, libname, source, symbol
         self.launches = 0
 
 
-ROUTES = {"tma": Route("tma", "libconvstage_sm90", SOURCE_SM90),
-          "mma": Route("mma", "libconvstage", SOURCE)}
+ROUTES = {"direct": Route("direct", "libconvstage_direct", SOURCE_DIRECT, "lm_conv_stage_direct"),
+          "tma": Route("tma", "libconvstage_sm90", SOURCE_SM90, "lm_conv_stage_tma"),
+          "mma": Route("mma", "libconvstage", SOURCE, "lm_conv_stage")}
 
 
 def weight_layout(w: torch.Tensor) -> torch.Tensor:
@@ -216,25 +230,24 @@ def build(route: str = "mma") -> ctypes.CDLL:
     if route not in _LIBS:
         r = ROUTES[route]
         lib = _nvcc.build(r.source, r.libname)
-        if route == "tma":
-            fn = lib.lm_conv_stage_tma
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 9
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        else:
-            fn = lib.lm_conv_stage
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 9
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn = getattr(lib, r.symbol)  # one argument list for the three
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 9
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIBS[route] = lib
     return _LIBS[route]
 
 
 def route_of(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The route that takes a stage (:data:`ROUTES`): ``"tma"`` where cin
-    is a multiple of 64 and the contiguous ``x`` and weight start on
-    16-byte boundaries, else ``"mma"``."""
+    """The route that takes a stage (:data:`ROUTES`): ``"direct"`` where
+    cin is under 8 and the kernel at most 3×3; ``"tma"`` where cin is a
+    multiple of 64 and the contiguous ``x`` and weight start on 16-byte
+    boundaries; else ``"mma"``."""
+    _, kh, kw, cin = w.shape
+    if cin < DIRECT_CIN and kh <= DIRECT_KSIZE and kw <= DIRECT_KSIZE:
+        return "direct"
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    return "tma" if w.shape[3] % TMA_CIN == 0 and aligned else "mma"
+    return "tma" if cin % TMA_CIN == 0 and aligned else "mma"
 
 
 def _checked(x, w, b, s, t, padding, out_dtype, z=None):
@@ -287,14 +300,19 @@ def conv_stage(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     the ReLU + affine mode, a float32 tensor of the output's shape that
     receives ``acc + b``. Counts kernel launches in ``conv_stage.launches``
     and in the route's (:func:`route_of`; for measurements, ``_route``
-    forces one)."""
+    forces one: ``"mma"`` takes any stage, the others only their own)."""
     mode, x, w, vecs = _checked(x, w, b, s, t, padding, out_dtype, z)
     if x.device.type == "cpu":
         return conv_stage_reference(x, w, b, s, t, padding, out_dtype, z).contiguous()
-    route = route_of(x, w) if _route is None else _route
-    if route == "tma" and route_of(x, w) != "tma":
+    routed = route_of(x, w)
+    route = routed if _route is None else _route
+    if route == "tma" and routed != "tma":
         raise ValueError(f"the TMA route takes cin % {TMA_CIN} == 0 and 16-byte aligned "
                          f"operands, not cin {w.shape[3]}")
+    if route == "direct" and routed != "direct":
+        raise ValueError(f"the direct route takes cin < {DIRECT_CIN} and kernels up to "
+                         f"{DIRECT_KSIZE}x{DIRECT_KSIZE}, not a {tuple(w.shape[1:3])} kernel of "
+                         f"cin {w.shape[3]}")
     n, h, wd, cin = x.shape
     cout, kh, kw, _ = w.shape
     ph, pw = padding
@@ -310,8 +328,7 @@ def conv_stage(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             ph, pw, mode)
     stream = torch._C._cuda_getCurrentRawStream(device)
     lib = _LIBS.get(route) or build(route)
-    fn = lib.lm_conv_stage_tma if route == "tma" else lib.lm_conv_stage
-    rc = fn(*args, device, stream)
+    rc = getattr(lib, ROUTES[route].symbol)(*args, device, stream)
     if rc >= _NO_ENCODER:
         raise RuntimeError("lm_conv_stage_tma: the driver's cuTensorMapEncodeTiled was not "
                            "found (libcuda.so.1)")

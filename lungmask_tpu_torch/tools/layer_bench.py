@@ -10,8 +10,9 @@ isolation, in bf16, through the port's own forward code:
   projection (bias only) as ``models/unet._stage`` runs it in bf16
   inference: one launch of K4 (``ops/kernels/conv_stage``), the float32
   accumulator through the epilogue, one rounding; the row names the route
-  that takes it (``conv_stage.route_of``: ``tma``, the wgmma/TMA kernel,
-  where cin is a multiple of 64, else ``mma``). Beside it the split the
+  that takes it (``conv_stage.route_of``: ``direct`` where cin is under
+  8, ``tma``, the wgmma/TMA kernel, where cin is a multiple of 64, else
+  ``mma``). Beside it the split the
   port ran before K4 (``conv_stage.conv_stage_cudnn``: the cuDNN bf16 conv,
   then its float32 bias, ReLU, affine and the cast back), the cuDNN conv
   alone (``F.conv2d``), and that split's epilogue as its time less the
@@ -96,7 +97,8 @@ def _copies(nbytes: float) -> int:
 def _op_fns(op: roofline.Op, dtype, device, gen):
     """(the op as the forward runs it, the cuDNN conv + float32 epilogue or
     None, the cuDNN conv alone or None), each ``fn(i)`` over the ``i``-th
-    copy of a seeded random input."""
+    copy of a seeded random input, and K4's route for a conv stage
+    (``conv_stage.route_of``) or None."""
 
     def rand(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=device) * scale)
@@ -112,7 +114,7 @@ def _op_fns(op: roofline.Op, dtype, device, gen):
         if op.kind == "head":
             wl = wt[:, :, 0, 0].t().contiguous()
             return (lambda i: torch.matmul(xs[i % len(xs)].permute(0, 2, 3, 1).float(),
-                                           wl.float()) + b), None, None
+                                           wl.float()) + b), None, None, None
         holder = nn.Module()  # the stage's weight, as a block holds it
         holder.register_buffer("w", wt)
         aff = (s, t) if op.k == 3 else (None, None)  # the 1×1 projection: bias only
@@ -123,20 +125,22 @@ def _op_fns(op: roofline.Op, dtype, device, gen):
 
         return ((lambda i: unet._stage(holder, xs[i % len(xs)], "w", b, *aff)),
                 (lambda i: k4.conv_stage_cudnn(nhwc(i), wk, b, *aff, padding=(pad, pad))),
-                (lambda i: F.conv2d(xs[i % len(xs)], wt, padding=pad)))
+                (lambda i: F.conv2d(xs[i % len(xs)], wt, padding=pad)),
+                k4.route_of(nhwc(0), wk))
     if op.kind == "pool":
         xs = nchw(op.cin, op.h, op.w, _copies(op.bytes))
-        return (lambda i: unet._pool(xs[i % len(xs)])), None, None
+        return (lambda i: unet._pool(xs[i % len(xs)])), None, None, None
     if op.kind == "up":
         xs = nchw(op.cin, op.h, op.w, _copies(op.bytes))
-        return (lambda i: unet._up2(xs[i % len(xs)])), None, None
+        return (lambda i: unet._up2(xs[i % len(xs)])), None, None, None
     if op.kind == "concat":
         ups = nchw(op.cin, op.h, op.w, _copies(op.bytes))
         skips = nchw(op.cin, op.h, op.w, len(ups))
-        return (lambda i: torch.cat([ups[i % len(ups)], skips[i % len(ups)]], dim=1)), None, None
+        return ((lambda i: torch.cat([ups[i % len(ups)], skips[i % len(ups)]], dim=1)),
+                None, None, None)
     if op.kind == "argmax":
         xs = [rand(op.n, op.h, op.w, op.cin) for _ in range(_copies(op.bytes))]
-        return (lambda i: torch.argmax(xs[i % len(xs)], dim=-1).to(torch.uint8)), None, None
+        return (lambda i: torch.argmax(xs[i % len(xs)], dim=-1).to(torch.uint8)), None, None, None
     raise ValueError(f"unknown op kind {op.kind}")
 
 
@@ -151,21 +155,21 @@ def run(chunk: int = 32, *, depth: int = roofline.DEPTH, wf: int = roofline.WF,
     rows = []
     with torch.inference_mode(), unet.conv_flags(dtype):
         for op in ops:
-            whole, split, conv = _op_fns(op, dtype, device, gen)
+            whole, split, conv, route = _op_fns(op, dtype, device, gen)
             ms = _median_ms(whole, device)
             bound, by = roofline.bound_ms(op)
             row = {"op": op.name, "kind": op.kind, "ms": ms,
                    "achieved_tflops": op.flops / ms / 1e9, "bound_ms": bound, "bound_by": by,
                    "share": bound / ms}
-            if op.kind == "conv":
-                row["route"] = "tma" if op.cin % k4.TMA_CIN == 0 else "mma"
+            if route is not None:
+                row["route"] = route
             if conv is not None:
                 cudnn_ms, conv_ms = _median_ms(split, device), _median_ms(conv, device)
                 row.update(cudnn_ms=cudnn_ms, conv_ms=conv_ms, epilogue_ms=cudnn_ms - conv_ms,
                            conv_achieved_tflops=op.flops / conv_ms / 1e9,
                            conv_share=bound / conv_ms)
             rows.append(row)
-            del whole, split, conv
+            del whole, split, conv, route
         params = unet.init_params(roofline.N_CLASSES, depth=depth, wf=wf,
                                   generator=torch.Generator().manual_seed(SEED))
         model = unet.UNet(params, dtype).to(device).eval()

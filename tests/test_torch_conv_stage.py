@@ -16,8 +16,9 @@ Tolerances, in bf16 steps (adjacent representable values are 1 apart):
 * the port's stage before K4 (``conv_stage_cudnn``: torch's bf16
   convolution rounds before the bias) differs from JAX in at least 5% of
   the elements at every shape: the fault K4 repairs.
-* on the card (``cuda``-marked): each route that takes a shape (the TMA
-  route where cin is a multiple of 64, the mma.sync route always) against
+* on the card (``cuda``-marked): each route that takes a shape (the
+  direct route where cin is under 8, the TMA route where cin is a multiple
+  of 64, the mma.sync route always) against
   the plain version (float32 on the card, TF32 off) by the same rule, at
   the U-Net's shapes and at ragged ones; float32 outputs (bias only) and
   the ReLU + affine mode's float32 ``z`` within 1e-5 of the largest. Run
@@ -49,9 +50,12 @@ UNET_STAGES = (
     + [(2 * c, c, h, 1) for c, h in ((512, 32), (256, 64), (128, 128), (64, 256))]
 )
 # Ragged pixel counts and channels: partial M and N tiles, the scalar path
-# (cin not a multiple of 8), an odd cout (single-channel stores).
+# (cin not a multiple of 8), an odd cout (single-channel stores); for the
+# direct route a cout below one octet, rows wider than its 256-pixel tile
+# with a partial third channel slab, and the residual variant's first 1×1
+# path (cin 1 -> 64 at 256², K = 1).
 RAGGED = [(1, 37, 45, 64, 96, 3), (2, 5, 7, 4, 3, 3), (1, 9, 130, 24, 200, 1),
-          (3, 11, 13, 8, 130, 3)]
+          (3, 11, 13, 8, 130, 3), (1, 7, 300, 1, 130, 3), (2, 256, 256, 1, 64, 1)]
 
 
 def _inputs(n, h, w, cin, cout, k, seed):
@@ -240,8 +244,10 @@ def _kernel_vs_plain(dev, n, h, w, cin, cout, k, seed, mode, route):
 
 
 def _routes(cin):
-    """The routes that take a stage of ``cin`` channels (aligned operands)."""
-    return ["mma", "tma"] if cin % k4.TMA_CIN == 0 else ["mma"]
+    """The routes that take a 3×3 or 1×1 stage of ``cin`` channels (aligned
+    operands)."""
+    return ["mma"] + (["tma"] if cin % k4.TMA_CIN == 0 else []) + (
+        ["direct"] if cin < k4.DIRECT_CIN else [])
 
 
 @pytest.mark.cuda
@@ -261,12 +267,49 @@ def test_kernel_matches_plain_at_ragged_shapes(shape, route, mode):
     _kernel_vs_plain(dev, *shape, seed=sum(shape), mode=mode, route=route)
 
 
+def test_route_of_by_shape():
+    """cin 1 and 4 take the direct route, 8 the mma.sync route, 64 the TMA
+    route; a view off a 16-byte boundary (cin 64) the mma.sync route."""
+    def route(cin, k=3, offset=0):
+        flat = torch.zeros(2 * 5 * 6 * cin + offset, dtype=torch.bfloat16)
+        x = flat[offset:].view(2, 5, 6, cin)
+        return k4.route_of(x, torch.zeros(16, k, k, cin, dtype=torch.bfloat16))
+
+    assert [route(c) for c in (1, 4, 8, 64)] == ["direct", "direct", "mma", "tma"]
+    assert route(64, offset=1) == "mma"
+    assert route(7, k=3) == "direct" and route(1, k=1) == "direct"
+    assert route(3, k=5) == "mma" and route(1, k=5) == "mma"  # past the direct route's 3×3
+
+
+@pytest.mark.cuda
+def test_direct_route_bands_are_bit_equal_to_the_whole_image():
+    """Two (0, 1)-padded bands of a cin-1 image on the direct route: each
+    band's output equals the whole image's rows bit for bit, as the U-Net's
+    space axis needs (the neighbours' rows and the zero rows at the image's
+    edge enter each sum as the whole image's taps do)."""
+    dev = tp.cuda_device()
+    x, whwio, b, s, t = _inputs(2, 64, 64, 1, 64, 3, seed=13)
+    (xt, bt, st, tt), wt = _torch_args(x, whwio, b, s, t, dev)
+    xb = xt.to(torch.bfloat16)
+    whole = k4.conv_stage(xb, wt, bt, st, tt)
+    rows = 32
+    top = torch.cat([torch.zeros_like(xb[:, :1]), xb[:, : rows + 1]], dim=1)
+    bottom = torch.cat([xb[:, rows - 1:], torch.zeros_like(xb[:, :1])], dim=1)
+    before = k4.ROUTES["direct"].launches
+    for i, band in enumerate((top, bottom)):
+        got = k4.conv_stage(band, wt, bt, st, tt, padding=(0, 1))
+        assert torch.equal(got.view(torch.int16),
+                           whole[:, i * rows:(i + 1) * rows].view(torch.int16)), f"band {i}"
+    assert k4.ROUTES["direct"].launches == before + 2
+
+
 @pytest.mark.cuda
 def test_routes_by_shape_never_by_failure():
     """The U-Net's stages take the TMA route where cin is a multiple of 64
-    and the operands are 16-byte aligned, else the mma.sync route; a view
-    that starts off a 16-byte boundary takes the mma.sync route and gives
-    the aligned call's bits."""
+    and the operands are 16-byte aligned, else the mma.sync route (the
+    direct route below 8 channels); a view that starts off a 16-byte
+    boundary takes the mma.sync route and gives the aligned call's bits;
+    a forced route that does not take the shape raises."""
     dev = tp.cuda_device()
     x, whwio, b, s, t = _inputs(1, 8, 9, 64, 64, 3, seed=11)
     (xt, bt, st, tt), wt = _torch_args(x, whwio, b, s, t, dev)
@@ -284,6 +327,8 @@ def test_routes_by_shape_never_by_failure():
                                                             _route="mma").view(torch.int16))
     with pytest.raises(ValueError, match="TMA route"):
         k4.conv_stage(off, wt, bt, st, tt, _route="tma")
+    with pytest.raises(ValueError, match="direct route"):
+        k4.conv_stage(xb, wt, bt, st, tt, _route="direct")
 
 
 def _counted(monkeypatch):

@@ -63,6 +63,11 @@ def test_layer_bench_cpu(tmp_path, capsys):
         assert r["ms"] > 0 and r["bound_ms"] > 0, r
         if r["kind"] == "conv":  # ms is K4's; the cuDNN conv and its epilogue beside it
             assert r["conv_ms"] > 0 and r["epilogue_ms"] == r["cudnn_ms"] - r["conv_ms"]
+            # the route conv_stage.route_of gives: direct below 8 channels (the
+            # first conv), tma at multiples of 64, else mma
+            op = next(o for o in ops if o.name == r["op"])
+            assert r["route"] == ("direct" if op.cin < 8 else "tma" if op.cin % 64 == 0
+                                  else "mma"), r
     assert result["forward_ms"] > 0
     assert result["sum_ms"] == pytest.approx(sum(r["ms"] for r in result["ops"]))
     assert result["roofline_ms"] == pytest.approx(roofline.totals(ops)["bound_ms"])
