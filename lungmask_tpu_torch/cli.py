@@ -255,6 +255,9 @@ def _cohort(args, batchsize) -> None:
         f"Cohort done: {len(stats.results) - len(failed)}/{len(stats.results)} "
         f"volumes in {stats.wall_seconds:.1f}s ({stats.volumes_per_hour:.0f} volumes/hour)"
     )
+    logger.info("Cohort stages (seconds summed over the run):\n" + inferer.timings.report())
+    logger.info("Cohort threads (busy and wait seconds): " + ", ".join(
+        f"{key} {secs:.1f}s" for key, secs in stats.stage_seconds.items()))
     if failed and len(failed) == len(stats.results):
         sys.exit("every volume failed")
 

@@ -210,13 +210,14 @@ class LMInferer:
 
     def _to_lps(self, image: ImageLike):
         """Input normalization (reference mask.py:153-164): numpy passthrough,
-        geometry-carrying images reoriented to LPS."""
-        if isinstance(image, np.ndarray):
-            return self._hu_capable(image.copy()), None, None
-        curr_orient = image.orientation()
-        if curr_orient != "LPS":
-            image = reorient(image, "LPS")
-        return self._hu_capable(image.array), curr_orient, image
+        geometry-carrying images reoriented to LPS (stage ``to_lps``)."""
+        with self.timings.stage("to_lps"):
+            if isinstance(image, np.ndarray):
+                return self._hu_capable(image.copy()), None, None
+            curr_orient = image.orientation()
+            if curr_orient != "LPS":
+                image = reorient(image, "LPS")
+            return self._hu_capable(image.array), curr_orient, image
 
     @staticmethod
     def _hu_capable(arr: np.ndarray) -> np.ndarray:
@@ -231,16 +232,18 @@ class LMInferer:
         return arr
 
     def _from_lps(self, outmask, curr_orient, lps_image) -> np.ndarray:
-        """Reorient a result back to the input orientation (mask.py:204-208)."""
-        if curr_orient is None or curr_orient == "LPS":
-            return outmask.astype(np.uint8)
-        out_img = MedicalImage(
-            outmask,
-            spacing=lps_image.spacing,
-            origin=lps_image.origin,
-            direction=lps_image.direction,
-        )
-        return reorient(out_img, curr_orient).array.astype(np.uint8)
+        """Reorient a result back to the input orientation (mask.py:204-208;
+        stage ``from_lps``)."""
+        with self.timings.stage("from_lps"):
+            if curr_orient is None or curr_orient == "LPS":
+                return outmask.astype(np.uint8)
+            out_img = MedicalImage(
+                outmask,
+                spacing=lps_image.spacing,
+                origin=lps_image.origin,
+                direction=lps_image.direction,
+            )
+            return reorient(out_img, curr_orient).array.astype(np.uint8)
 
     def _stage_bar(self):
         """Per-volume progress over the four pipeline stages."""
@@ -254,7 +257,7 @@ class LMInferer:
 
     def _infer_volume(self, inimg_raw: np.ndarray) -> np.ndarray:
         """LPS-space volume → mask (preprocess → U-Net → postprocess → paste)."""
-        with trace("inference"), self._stage_bar() as bar:
+        with self._stage_bar() as bar:
             with self.timings.stage("preprocess"):
                 normalized, boxes = self._preprocess(inimg_raw)
             bar.update(1)
@@ -399,6 +402,7 @@ class LMInferer:
         """Phase 2 of :meth:`apply` on a :meth:`preprocess_image` result."""
         return self.finish_forward(pre, self.forward_preprocessed(pre))
 
+    @trace("inference")
     def apply(self, image: ImageLike) -> np.ndarray:
         """Apply the model (or the fused model pair) to a volumetric image;
         returns the uint8 label volume in the input's own geometry and axis

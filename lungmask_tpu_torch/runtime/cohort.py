@@ -17,6 +17,12 @@ device compute of volume i. The stages are the inferer's split-phase API:
 thread, ``finish_forward`` in the finisher. Queues are bounded
 (``prefetch``) so memory stays flat regardless of cohort size.
 
+The loader's read and decode (stage ``decode``) and the finisher's mask
+write (stage ``write``) are timed into the inferer's ``timings``, beside
+its own stages, so one table holds every stage of the cohort; with
+``$LUNGMASK_TPU_TRACE_DIR`` set the whole run is one trace (``cohort``)
+holding the three threads' ``lungmask.<stage>`` spans.
+
 Every thread launches on the default CUDA stream, so the loader thread's
 bodymask kernel (K1), the main thread's U-Net and the finisher's device-mode
 cleanup queue on the card one after another in launch order; the overlap
@@ -38,6 +44,7 @@ import numpy as np
 from lungmask_tpu_torch.io import loader
 from lungmask_tpu_torch.io.image import MedicalImage
 from lungmask_tpu_torch.logger import logger
+from lungmask_tpu_torch.utils.profiling import trace
 
 VolumeSource = Union[str, np.ndarray, MedicalImage]
 
@@ -75,6 +82,7 @@ def _load(source: VolumeSource) -> MedicalImage:
     return loader.load_input_image(source)
 
 
+@trace("cohort")
 def run_cohort(
     sources: Sequence[VolumeSource],
     inferer,
@@ -151,7 +159,8 @@ def run_cohort(
                     break
                 t0 = time.perf_counter()
                 try:
-                    img = _load(src)
+                    with inferer.timings.stage("decode"):
+                        img = _load(src)
                     pre = inferer.preprocess_image(img)
                     waits["load_busy"] += time.perf_counter() - t0
                     _timed_put(in_q, (name_of(i, src), img, pre, None),
@@ -183,10 +192,11 @@ def run_cohort(
                 try:
                     mask = inferer.finish_forward(pre, payload)
                     if output_dir is not None:
-                        out = img.with_array(mask)
-                        loader.write_image(
-                            out, os.path.join(output_dir, f"{name}_mask.nii.gz")
-                        )
+                        with inferer.timings.stage("write"):
+                            loader.write_image(
+                                img.with_array(mask),
+                                os.path.join(output_dir, f"{name}_mask.nii.gz"),
+                            )
                 except Exception as e:
                     logger.error(f"cohort: finishing failed for {name}: {e}")
                     err, mask = str(e), None

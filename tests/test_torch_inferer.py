@@ -69,8 +69,8 @@ def test_apply_equals_jax(weights, phantom, jax_inferers, kind, post):
     np.testing.assert_array_equal(got, want)
     assert set(np.unique(got)) == {0, 1, 2}
     assert set(port.timings.summary()) == (
-        {"preprocess", "unet", "postprocess", "paste_back"} if post
-        else {"preprocess", "unet", "paste_back"}
+        {"to_lps", "preprocess", "unet", "postprocess", "paste_back", "from_lps"} if post
+        else {"to_lps", "preprocess", "unet", "paste_back", "from_lps"}
     )
 
 
