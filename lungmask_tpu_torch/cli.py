@@ -25,7 +25,7 @@ import sys
 
 from lungmask_tpu_torch import __version__
 from lungmask_tpu_torch.inferer import LMInferer
-from lungmask_tpu_torch.io import loader
+from lungmask_tpu_torch.io import loader, nifti
 from lungmask_tpu_torch.logger import logger
 
 
@@ -258,6 +258,8 @@ def _cohort(args, batchsize) -> None:
     logger.info("Cohort stages (seconds summed over the run):\n" + inferer.timings.report())
     logger.info("Cohort threads (busy and wait seconds): " + ", ".join(
         f"{key} {secs:.1f}s" for key, secs in stats.stage_seconds.items()))
+    logger.info("Cohort .nii.gz deflate (process-wide counts): " + ", ".join(
+        f"{key} {n}" for key, n in nifti.deflate_counts().items()))
     if failed and len(failed) == len(stats.results):
         sys.exit("every volume failed")
 

@@ -6,6 +6,8 @@ the cohort writes or keeps must equal JAX's cohort mask and the port's own
 ``apply`` voxel for voxel, in exact and in device postprocessing.
 """
 
+import gzip
+import logging
 import os
 
 import numpy as np
@@ -17,6 +19,7 @@ from lungmask_tpu.runtime.cohort import run_cohort as jax_run_cohort
 from lungmask_tpu_torch import LMInferer, cli
 from lungmask_tpu_torch.io import dicom, loader, nifti
 from lungmask_tpu_torch.io.image import MedicalImage
+from lungmask_tpu_torch.logger import logger
 from lungmask_tpu_torch.models import convert, synthetic
 from lungmask_tpu_torch.runtime.cohort import run_cohort
 
@@ -203,3 +206,48 @@ def test_cli_cohort(weights, inferer, tmp_path):
     empty.mkdir()
     with pytest.raises(SystemExit, match="No volumes"):
         cli.main([str(empty), str(out), "--cohort", "--modelpath", weights, "--cpu"])
+
+
+def test_cohort_masks_read_back_and_count_gzip_writes(inferer, tmp_path):
+    """Two volumes through the cohort: each mask on disk reads back as the
+    kept mask, and the process-wide deflate counts show two gzip writes."""
+    out = tmp_path / "out"
+    out.mkdir()
+    before = nifti.deflate_counts()
+    stats = run_cohort([_vol(0), _vol(1)], inferer, output_dir=str(out), keep_masks=True)
+    after = nifti.deflate_counts()
+    assert [r.error for r in stats.results] == [None, None]
+    for r in stats.results:
+        path = str(out / f"{r.name}_mask.nii.gz")
+        np.testing.assert_array_equal(nifti.read(path).array, r.mask)
+        with open(path, "rb") as f:
+            assert gzip.decompress(f.read()) == nifti.encode(
+                loader.load_input_image(path).with_array(r.mask))
+    assert after["gzip_writes"] - before["gzip_writes"] == 2
+
+
+def test_cli_cohort_logs_deflate_counts(weights, tmp_path):
+    """``--cohort``'s closing log names the process's deflate counts."""
+    src, out = tmp_path / "in", tmp_path / "out"
+    src.mkdir()
+    for i in range(2):
+        nifti.write(MedicalImage(_vol(i)), str(src / f"v{i}.nii"))
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Keep()
+    logger.addHandler(handler)
+    before = nifti.deflate_counts()
+    try:
+        cli.main([str(src), str(out), "--cohort", "--modelpath", weights, "--cpu",
+                  "--noprogress"])
+    finally:
+        logger.removeHandler(handler)
+    lines = [m for m in records if m.startswith("Cohort .nii.gz deflate")]
+    assert len(lines) == 1
+    counts = dict(kv.rsplit(" ", 1) for kv in lines[0].split(": ", 1)[1].split(", "))
+    assert set(counts) == set(before)
+    assert int(counts["gzip_writes"]) == before["gzip_writes"] + 2

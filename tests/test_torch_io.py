@@ -11,8 +11,13 @@ The pixel codecs and transfer syntaxes are ``test_torch_codecs.py``'s.
 Tolerance: none.
 """
 
+import gzip
+import io
 import os
 import shutil
+import sys
+import threading
+import zlib
 
 import numpy as np
 import pytest
@@ -23,10 +28,11 @@ from lungmask_tpu.io import dicom as jdicom
 from lungmask_tpu.io import image as jimage
 from lungmask_tpu.io import loader as jloader
 from lungmask_tpu.io import mha as jmha
+from lungmask_tpu.io import nifti as jnifti
 from lungmask_tpu.io import nohu as jnohu
 from lungmask_tpu.io import nrrd as jnrrd
 from lungmask_tpu_torch import compat
-from lungmask_tpu_torch.io import dicom, image, loader, mha, nohu, nrrd
+from lungmask_tpu_torch.io import dicom, image, loader, mha, nifti, nohu, nrrd
 
 PKGS = {"jax": (jimage, jloader), "port": (image, loader)}
 RASTER = (".png", ".tif", ".bmp", ".jpg")
@@ -94,6 +100,138 @@ def test_unknown_formats_fail_alike(tmp_path):
     assert type(port_err.value).__name__ == type(jax_err.value).__name__
     assert str(port_err.value) == str(jax_err.value)
     assert loader.get_DICOM_tags_to_keep() == jloader.get_DICOM_tags_to_keep()
+
+
+# ---------------------------------------------------------------------------
+# .nii.gz: level-9 slabs deflated on a thread pool into one gzip member
+
+# Shapes whose NIfTI stream (352 + voxel bytes) is under one slab, exactly one
+# 1 MiB slab, and three slabs plus a ragged tail, at every dtype below
+# (32757 = 183 * 179).
+SLAB_SHAPES = {
+    "below": lambda itemsize: (3, 10, 12),
+    "one_slab": lambda itemsize: (32 // itemsize, 183, 179),
+    "three_slabs_tail": lambda itemsize: (104 // itemsize, 183, 179),
+}
+
+
+def _patterned(shape, dtype, seed=0):
+    """Voxels with a period of 7000 and 2% noise: matches reach back across
+    the slab cuts, as in a mask, without being trivial runs."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    arr = np.resize(rng.integers(-100, 100, 7000), n)
+    arr[rng.choice(n, n // 50, replace=False)] = rng.integers(-100, 100, n // 50)
+    if dtype == np.uint8:
+        arr = np.abs(arr) % 7
+    return arr.astype(dtype).reshape(shape)
+
+
+def _nifti_image(shape, dtype, seed=0):
+    return image.MedicalImage(_patterned(shape, dtype, seed), spacing=(0.7, 0.8, 2.5),
+                              origin=(-10.0, 5.0, 2.0), direction=np.diag([1.0, -1.0, 1.0]))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float32])
+@pytest.mark.parametrize("size", sorted(SLAB_SHAPES))
+def test_nifti_gz_one_member_round_trip(tmp_path, size, dtype):
+    img = _nifti_image(SLAB_SHAPES[size](np.dtype(dtype).itemsize), dtype)
+    stream = nifti.encode(img)
+    slabs = -(-len(stream) // nifti._SLAB)
+    assert slabs == {"below": 1, "one_slab": 1, "three_slabs_tail": 4}[size]
+    assert (len(stream) == nifti._SLAB) == (size == "one_slab")
+    path = str(tmp_path / "v.nii.gz")
+    nifti.write(img, path)
+    np.testing.assert_array_equal(_read_both(path).array, img.array)
+    with open(path, "rb") as f:
+        data = f.read()
+    assert gzip.decompress(data) == stream
+    member = zlib.decompressobj(31)  # one gzip member, nothing after it
+    assert member.decompress(data) == stream
+    assert member.eof and member.unused_data == b""
+    assert data[:10] == b"\x1f\x8b\x08\x00\x00\x00\x00\x00\x02\xff"  # mtime 0, no name, XFL 2
+    # The first slab is zlib's level-9 raw deflate of the stream's first MiB.
+    first = zlib.compressobj(9, zlib.DEFLATED, -15)
+    head = first.compress(stream[: nifti._SLAB])
+    head += first.flush(zlib.Z_FINISH if slabs == 1 else zlib.Z_SYNC_FLUSH)
+    assert data[10 : 10 + len(head)] == head
+
+
+@pytest.mark.parametrize("workers", [2, 4, 8])
+def test_nifti_gz_bytes_do_not_depend_on_workers(tmp_path, workers):
+    """The pool deflates the same slabs as one thread: the same file."""
+    img = _nifti_image(SLAB_SHAPES["three_slabs_tail"](1), np.uint8, seed=3)
+    one, many = io.BytesIO(), io.BytesIO()
+    nifti._write_gz(one, nifti._stream(img), 1)
+    nifti._write_gz(many, nifti._stream(img), workers)
+    assert one.getvalue() == many.getvalue()
+    path = str(tmp_path / "v.nii.gz")
+    nifti.write(img, path)
+    with open(path, "rb") as f:
+        assert f.read() == one.getvalue()
+    assert gzip.decompress(one.getvalue()) == nifti.encode(img)
+
+
+def test_nifti_gz_slab_primed_with_previous_window():
+    """A slab inflates only with the 32 KiB before it as its dictionary, and
+    the file stays within 1% of one level-9 pass over the whole stream."""
+    img = _nifti_image(SLAB_SHAPES["three_slabs_tail"](1), np.uint8, seed=5)
+    stream, bufs, slab = nifti.encode(img), nifti._stream(img), nifti._SLAB
+    second = nifti._deflate_slab(bufs, slab, 2 * slab, False)
+    primed = zlib.decompressobj(-15, zdict=stream[slab - (1 << 15) : slab])
+    assert primed.decompress(second) == stream[slab : 2 * slab]
+    with pytest.raises(zlib.error, match="distance too far back"):
+        zlib.decompressobj(-15).decompress(second)
+    out = io.BytesIO()
+    nifti._write_gz(out, bufs, 4)
+    assert len(out.getvalue()) <= 1.01 * len(gzip.compress(stream, 9))
+
+
+def test_nifti_deflate_counts(tmp_path):
+    """An inline write (one slab) and a parallel one (four slabs, four
+    workers) each count; so do writes from eight threads at once."""
+    small = _nifti_image((3, 10, 12), np.int16)
+    big = nifti._stream(_nifti_image(SLAB_SHAPES["three_slabs_tail"](1), np.uint8))
+    before = nifti.deflate_counts()
+    nifti.write(small, str(tmp_path / "small.nii.gz"))
+    nifti._write_gz(io.BytesIO(), big, 4)
+    nifti.write(small, str(tmp_path / "plain.nii"))  # not a gzip write
+    after = nifti.deflate_counts()
+    assert after["gzip_writes"] - before["gzip_writes"] == 2
+    assert after["parallel_writes"] - before["parallel_writes"] == 1
+    assert after["slabs"] - before["slabs"] == 1 + 4
+    assert after["max_workers"] >= 4
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=nifti.write,
+                                    args=(small, str(tmp_path / f"t{i}.nii.gz")))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    end = nifti.deflate_counts()
+    assert end["gzip_writes"] - after["gzip_writes"] == 8
+    assert end["slabs"] - after["slabs"] == 8
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float32])
+def test_nii_bytes_equal_jax_encode(tmp_path, dtype):
+    """The plain .nii writes the three buffers straight to the file: the
+    same bytes as the JAX package's encode, header + 4 zeros + voxels."""
+    img = _nifti_image(SLAB_SHAPES["one_slab"](np.dtype(dtype).itemsize), dtype)
+    want = jnifti.encode(jimage.MedicalImage(img.array, spacing=img.spacing,
+                                             origin=img.origin, direction=img.direction))
+    assert nifti.encode(img) == want
+    path = str(tmp_path / "v.nii")
+    nifti.write(img, path)
+    with open(path, "rb") as f:
+        assert f.read() == want
 
 
 # ---------------------------------------------------------------------------
