@@ -5,7 +5,12 @@
 inputs and weights from the seed, warms up the shapes its traffic uses,
 measures for the window, reads the device's memory peak, frees the
 program's state, and then checks a sample of what the window produced
-against the reference (``portbench/reference``).
+against the reference. Everything that depends on the model comes from
+the configuration's family (``portbench/families/<name>.py``, found by
+``spec.family``), so a new family runs under these lanes unchanged; a lane
+that is not one of :data:`LANES` is a file of its own,
+``portbench/lanes_extra/<lane>.py`` with a function ``run(run)``
+(:func:`resolve`).
 
 A lane returns a dict: ``attempted``, ``failed``, ``e2e`` (end-to-end
 values), ``ctx`` (what the per-layer readers read), ``checks`` ([name,
@@ -28,9 +33,7 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
-from portbench import phantom, roofline, tracing, weights
-
-B1 = 0.9  # Adam's first-moment decay (optax's default, the port's AdamW)
+from portbench import phantom, spec, tracing
 
 
 class Run:
@@ -44,6 +47,7 @@ class Run:
         self.config = cell["config"]
         self.traffic = cell["traffic"]
         self.limits = cell["limits"]
+        self.family = spec.family(self.config)
         self.device = device
         self.t_start = t_start
         self.setup_s = None
@@ -89,22 +93,6 @@ class Run:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
-    def model_trees(self) -> List[Dict[str, np.ndarray]]:
-        c = self.config
-        return [weights.make(self.seed, i, depth=c["depth"], wf=c["wf"], n_classes=m["n_classes"],
-                             eps=c["perturbation"], eps_head=c["head_perturbation"],
-                             device=self.device)
-                for i, m in enumerate(c["models"])]
-
-    def forward_cost(self, n_slices: int) -> dict:
-        """Analytic work and bound of one volume's forward(s) (every model
-        of the configuration)."""
-        c = self.config
-        costs = [roofline.forward_cost(n_slices, c["chunk"], depth=c["depth"], wf=c["wf"],
-                                       size=c["resolution"], n_classes=m["n_classes"])
-                 for m in c["models"]]
-        return {"flops": sum(x["flops"] for x in costs), "bound_s": sum(x["bound_s"] for x in costs)}
-
     def limit(self, name: str) -> float:
         return float(self.limits[name])
 
@@ -122,101 +110,6 @@ def _images(run: Run):
     return [MedicalImage(v, spacing=tuple(tr["spacing"]), direction=phantom.RAS) for v, _ in vols]
 
 
-def _inferer(run: Run, trees):
-    from lungmask_tpu_torch.inferer import LMInferer
-
-    paths = [weights.save_npz(os.path.join(run.tmp, f"model{i}.npz"), t) for i, t in enumerate(trees)]
-    kwargs = dict(run.traffic.get("inferer", {}))
-    if run.device.type == "cpu":
-        kwargs["force_cpu"] = True
-    return LMInferer(modelpath=paths[0], fillmodel_path=paths[1] if len(paths) > 1 else None,
-                     tqdm_disable=True, batch_size=run.config["chunk"], **kwargs)
-
-
-def _program_maps(inferer, image):
-    """``image`` once more through the timed inferer's first two split
-    phases (the stages ``apply`` runs): its class map(s) as the host
-    receives them, and its boxes."""
-    pre = inferer.preprocess_image(image)
-    pred = inferer.forward_preprocessed(pre)
-    maps = pred if isinstance(pred, tuple) else (pred,)
-    return [np.asarray(m) for m in maps], np.asarray(pre["boxes"])
-
-
-def _chunk_logits(run: Run, inferer, images, i: int):
-    """One chunk of pool volume ``i``, drawn from the seed: the reference's
-    normalized slices of it, and the class scores that each of the timed
-    inferer's runners (its U-Net on the window's kernels, at the window's
-    chunk size) gives those slices, float32 (n, H, W, K) on the host."""
-    from portbench.reference import pipeline
-
-    n, chunk = images[i].array.shape[0], int(run.config["chunk"])
-    start = chunk * int(run.rng.integers(0, -(-n // chunk)))
-    x = pipeline.normalized_slices(images[i].array, images[i].direction, start, start + chunk,
-                                   run.config["resolution"])
-    runners = [r for r in (inferer.model, inferer.fillmodelm) if r is not None]
-    with torch.inference_mode():
-        xt = torch.as_tensor(x, dtype=torch.float32, device=run.device).unsqueeze(-1)
-        return x, [r.model(xt).float().cpu() for r in runners]
-
-
-def _logit_gap(run: Run, x: np.ndarray, got: List[torch.Tensor], trees) -> float:
-    """The worst class's gap (``reference.unet.class_gap``: the norm of the
-    difference over the scale of the head's terms) between the program's
-    class scores and the float32 reference U-Net's, over the
-    configuration's models."""
-    from portbench.reference import unet
-
-    xt = torch.as_tensor(x, dtype=torch.float32, device=run.device)
-    worst = 0.0
-    for flat, scores in zip(trees, got):
-        p = unet.tensors(flat, run.device)
-        with torch.no_grad():
-            want, scale = unet.scores(p, xt)
-        worst = max(worst, unet.class_gap(scores, want.cpu(), scale))
-        del p, want
-    return worst
-
-
-def _inference_checks(run: Run, masks, prog, chunk, images, trees) -> List[list]:
-    """Each number beside its limit, over the sampled pool volumes
-    (``masks``: the window's masks of each; ``prog``: what
-    :func:`_program_maps` returned for it; ``chunk``: what
-    :func:`_chunk_logits` returned, or None where the window returned no
-    mask, which reads 1 throughout):
-
-    - ``map_mismatch``: the largest share of pixels in which a program class
-      map differs from the reference's (its own preprocessing and float32
-      U-Net): preprocessing, the U-Net, its argmax and download;
-    - ``finish_mismatch``: the largest share of voxels in which a mask of
-      the window differs from the reference's postprocessing, paste-back,
-      fusion and reorientation of the program's class maps and boxes
-      (exact): the host stages after the U-Net;
-    - ``logit_gap``: the chunk's class scores (:func:`_logit_gap`).
-    """
-    from portbench.reference import pipeline
-
-    map_mm = fin_mm = 0.0 if masks else 1.0
-    for i, kept in sorted(masks.items()):
-        img = images[i]
-        ref_maps, ref_boxes, shape = pipeline.class_maps(img.array, img.direction, trees,
-                                                         run.device)
-        maps, boxes = prog[i]
-        for got, want in zip(maps, ref_maps):
-            map_mm = max(map_mm, float(np.mean(got != want)) if got.shape == want.shape else 1.0)
-        want = pipeline.finish(maps, boxes, shape, img.direction)
-        for m in kept:
-            fin_mm = max(fin_mm, float(np.mean(m != want)) if m.shape == want.shape else 1.0)
-        if run.look:  # the whole pipeline's mask against the window's (calibration only)
-            ref = pipeline.finish(ref_maps, ref_boxes, shape, img.direction)
-            run.looked["mask_mismatch"] = max([run.looked.get("mask_mismatch", 0.0)]
-                                              + [float(np.mean(m != ref)) for m in kept])
-    gap = _logit_gap(run, chunk[0], chunk[1], trees) if chunk is not None else 1.0
-    return [["map_mismatch", map_mm, run.limit("map_mismatch")],
-            ["finish_mismatch", fin_mm, run.limit("finish_mismatch")],
-            ["logit_gap", gap, run.limit("logit_gap")]]
-
-
 def _sampled(run: Run, called: List[int]) -> List[int]:
     k = min(int(run.traffic.get("check_pool", 1)), len(called))
     return sorted(int(i) for i in run.rng.choice(sorted(called), size=k, replace=False))
@@ -231,8 +124,8 @@ def _keep(kept: Dict[int, List[np.ndarray]], i: int, mask: np.ndarray) -> None:
         slot[1] = mask
 
 
-def _stage_ctx(run: Run, timings, n_done: int, window: float, n_slices: int) -> dict:
-    cost = run.forward_cost(n_slices)
+def _stage_ctx(run: Run, timings, n_done: int, window: float, image) -> dict:
+    cost = run.family.forward_cost(run.config, image.array.shape, image.spacing)
     return {"volumes": n_done, "window_s": window,
             "stage_totals": dict(timings.totals),
             "forward_flops": cost["flops"] * n_done, "forward_bound_s": cost["bound_s"] * n_done}
@@ -242,12 +135,13 @@ def lane_apply(run: Run) -> dict:
     """A closed loop with one client: ``apply`` on the pool in turn, each
     mask dropped on return. A traced run drives the same stages through the
     split-phase API, each in a benchmark span."""
+    fam = run.family
     run.mark("start")
-    trees = run.model_trees()
+    trees = fam.weights(run)
     run.mark("weights")
     images = _images(run)
     run.mark("inputs")
-    inferer = _inferer(run, trees)
+    inferer = fam.inferer(run, trees)
     run.mark("inferer")
     shapes = {}
     for i, img in enumerate(images):
@@ -291,15 +185,13 @@ def lane_apply(run: Run) -> dict:
         t_end = time.perf_counter()
     window = t_end - t0
     done = k - failed
-    n_slices = images[0].array.shape[0]
-    ctx = _stage_ctx(run, inferer.timings, done, window, n_slices)
+    ctx = _stage_ctx(run, inferer.timings, done, window, images[0])
     sampled = _sampled(run, sorted(kept))
-    chunk = _chunk_logits(run, inferer, images, sampled[0]) if sampled else None
-    prog = {i: _program_maps(inferer, images[i]) for i in sampled}
+    prog = fam.outputs(run, inferer, images, sampled)
     peak = run.memory_peak()
     del inferer
     run.free_device()
-    checks = _inference_checks(run, {i: kept[i] for i in sampled}, prog, chunk, images, trees)
+    checks = fam.checks(run, {i: kept[i] for i in sampled}, prog, images, trees)
     p90 = (statistics.quantiles(latencies, n=10, method="inclusive")[8] if len(latencies) > 1
            else latencies[0])
     return {
@@ -331,9 +223,9 @@ def lane_cohort(run: Run) -> dict:
     from lungmask_tpu_torch.io import loader
     from lungmask_tpu_torch.runtime.cohort import run_cohort
 
-    tr = run.traffic
+    tr, fam = run.traffic, run.family
     run.mark("start")
-    trees = run.model_trees()
+    trees = fam.weights(run)
     run.mark("weights")
     images = _images(run)
     dirs = []
@@ -346,7 +238,7 @@ def lane_cohort(run: Run) -> dict:
     out_dir, keep_dir = os.path.join(run.tmp, "out"), os.path.join(run.tmp, "kept")
     os.makedirs(out_dir)
     os.makedirs(keep_dir)
-    inferer = _inferer(run, trees)
+    inferer = fam.inferer(run, trees)
     run.mark("inferer")
     prefetch = int(tr.get("prefetch", 2))
 
@@ -394,17 +286,16 @@ def lane_cohort(run: Run) -> dict:
     attempted = len(stats.results)
     failed = sum(1 for r in stats.results if r.error is not None)
     done = attempted - failed
-    ctx = _stage_ctx(run, inferer.timings, done, window, images[0].array.shape[0])
+    ctx = _stage_ctx(run, inferer.timings, done, window, images[0])
     ctx["cohort_stage_seconds"] = dict(stats.stage_seconds)
     ctx["cohort_wall_s"] = stats.wall_seconds
     sampled = _sampled(run, sorted(kept))
-    chunk = _chunk_logits(run, inferer, images, sampled[0]) if sampled else None
-    prog = {i: _program_maps(inferer, images[i]) for i in sampled}
+    prog = fam.outputs(run, inferer, images, sampled)
     peak = run.memory_peak()
     del inferer
     run.free_device()
     masks = {i: [read_nifti(p) for p in kept[i]] for i in sampled}
-    checks = _inference_checks(run, masks, prog, chunk, images, trees)
+    checks = fam.checks(run, masks, prog, images, trees)
     return {
         "attempted": attempted, "failed": failed,
         "e2e": {"volumes_per_h": 3600.0 * done / window},
@@ -415,21 +306,8 @@ def lane_cohort(run: Run) -> dict:
 # -- fine-tuning --------------------------------------------------------------
 
 
-def flat_tree(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(flat_tree(v, f"{prefix}.{k}" if prefix else k))
-        return out
-    if isinstance(tree, list):
-        out = {}
-        for i, v in enumerate(tree):
-            out.update(flat_tree(v, f"{prefix}.{i}"))
-        return out
-    return {prefix: tree}
-
-
 FIT_LOCALS = ("loss", "state")
+TRAIN_PIECES = ("train_model", "train_readings", "train_checks", "train_flops")
 
 
 def _fit_locals(frame) -> dict:
@@ -454,17 +332,23 @@ def lane_finetune(run: Run) -> dict:
     run: its first steps and the warm-up are set-up; the dataset's batch
     iterator opens the window after ``warm_steps`` and ends the epoch when it
     closes. The three steps checked against the reference are steps 1-3 of
-    that call, before the window opens (:func:`_fit_locals`)."""
-    from lungmask_tpu_torch.models import convert
+    that call, before the window opens (:func:`_fit_locals`). The model,
+    the program's readings and the reference come from the family's
+    ``train_*`` pieces; a family without them stops the run."""
     from lungmask_tpu_torch.train.augment import Augmenter
     from lungmask_tpu_torch.train.data import SliceDataset
     from lungmask_tpu_torch.train.loop import fit
     from lungmask_tpu_torch.train.optim import default_optimizer
 
+    fam = run.family
+    missing = [n for n in TRAIN_PIECES if not hasattr(fam, n)]
+    if missing:
+        raise RuntimeError(f"portbench: family {fam.__file__} gives no training step (no "
+                           f"{', '.join(missing)}); the finetune lane cannot run it")
     tr = run.traffic
     batch, warm = int(tr["batch"]), int(tr["warm_steps"])
     run.mark("start")
-    tree = run.model_trees()[0]
+    tree = fam.weights(run)[0]
     run.mark("weights")
     pairs = phantom.pool(run.seed, tr["volumes"], tr["slices"], tr["size"], run.device)
     obs: dict = {"loss": {}}
@@ -520,7 +404,7 @@ def lane_finetune(run: Run) -> dict:
 
     fit_seed = int(run.rng.integers(0, 2**31))
     compute = {"bfloat16": torch.bfloat16, "float32": torch.float32}[run.config["precision"]]
-    fit(convert.from_jax_params(weights.nested(tree), run.device), dataset,
+    fit(fam.train_model(run, tree), dataset,
         epochs=int(tr["epochs"]), batch_size=batch, optimizer=default_optimizer(n_batches),
         augment=augment, seed=fit_seed, compute_dtype=compute,
         dice_weight=float(tr["dice_weight"]), device=run.device)
@@ -528,34 +412,14 @@ def lane_finetune(run: Run) -> dict:
     steps = marks["steps"]
     peak = run.memory_peak()
 
-    model = obs["state1"].model
-    mu = obs["state1"].opt_state.mu
-    prog_grad = {k: float(v.norm()) / (1.0 - B1)
-                 for k, v in flat_tree(model.tree(of=mu)).items()}
-    p3 = flat_tree(model.tree(of=obs["params3"]))
-    prog_change = {}
-    for k, v in tree.items():
-        a = np.asarray(v, np.float32)
-        a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
-        prog_change[k] = float((p3[k].float().cpu() - torch.from_numpy(np.ascontiguousarray(a))).norm())
-    prog_loss = [float(obs["loss"][k]) for k in (1, 2, 3)]
-    del model, mu, p3, obs
+    prog = fam.train_readings(tree, obs["state1"], obs["params3"])
+    prog["loss"] = [float(obs["loss"][k]) for k in (1, 2, 3)]
+    del obs
     run.free_device()
-
-    from portbench.reference import train as ref_train
-
-    ref = ref_train.first_steps(pairs, tree, batch=batch, seed=fit_seed, n_batches=n_batches,
-                                dice_weight=float(tr["dice_weight"]),
-                                lr_swap=tuple(tr["lr_swap"]), size=run.config["resolution"],
-                                device=run.device)
-    gaps = ref_train.gaps({"loss": prog_loss, "grad": prog_grad, "change": prog_change}, ref)
-    print(f"portbench: {gaps['left_out']} leaves left out of change_gap", file=sys.stderr)
-    checks = [[name, gaps[name], run.limit(name)] for name in ("loss_gap", "grad_gap", "change_gap")]
+    checks = fam.train_checks(run, pairs, tree, prog, fit_seed=fit_seed, n_batches=n_batches)
     slices = steps * batch
     ctx = {"window_s": window, "steps": steps, "slices": slices,
-           "train_flops": 3.0 * roofline.forward_cost(
-               slices, slices, depth=run.config["depth"], wf=run.config["wf"],
-               size=run.config["resolution"], n_classes=run.config["models"][0]["n_classes"])["flops"]}
+           "train_flops": fam.train_flops(run.config, slices)}
     return {
         "attempted": steps, "failed": 0,
         "e2e": {"train_slices_per_s": slices / window},
@@ -569,3 +433,12 @@ LANES: Dict[str, Callable[[Run], dict]] = {
     "cohort": lane_cohort,
     "finetune": lane_finetune,
 }
+
+
+def resolve(lane: str) -> Callable[[Run], dict]:
+    """The lane a traffic file names: one of :data:`LANES`, else the
+    function ``run`` of ``portbench/lanes_extra/<lane>.py``; a lane with
+    neither stops the run, naming the file it looked for."""
+    if lane in LANES:
+        return LANES[lane]
+    return spec.module("lanes_extra", lane).run

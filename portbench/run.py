@@ -95,9 +95,10 @@ def main(argv=None, *, require_chip: bool = True, adjust=None) -> int:
 
     from portbench import lanes
 
+    lane = lanes.resolve(cell["traffic"]["lane"])
     run = lanes.Run(args, cell, device, T_START)
     try:
-        out = lanes.LANES[cell["traffic"]["lane"]](run)
+        out = lane(run)
     finally:
         run.cleanup()
     info["memory_peak_bytes"] = out["memory_peak_bytes"]

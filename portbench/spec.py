@@ -1,14 +1,17 @@
 """Finds everything of a cell by the names in ``BENCHMARK.json``: its
 configuration file, its traffic file (``traffic/<name>.json``), its limits
-(``limits/<cell>.json``), its metrics, and each per-layer metric's reader
+(``limits/<cell>.json``), its metrics, each per-layer metric's reader
 (``layer_metrics/<metric>.py``, a function ``read(ctx)`` that returns a
-number, or None where it finds nothing to read)."""
+number, or None where it finds nothing to read), and the configuration's
+model family (``families/<family>.py``, :func:`family`). A lane that the
+harness does not have is found the same way (``lanes.resolve``)."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
 import os
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,12 +54,28 @@ def cell(bench: dict, name: str, root: str = ROOT) -> dict:
     }
 
 
-def reader(metric: str, root: str = ROOT) -> Callable[[dict], Optional[float]]:
-    path = os.path.join(root, "portbench", "layer_metrics", metric + ".py")
-    spec = importlib.util.spec_from_file_location("portbench.layer_metrics." + metric, path)
+def module(kind: str, name: str, root: str = ROOT) -> ModuleType:
+    """``portbench/<kind>/<name>.py`` loaded by path; where there is no such
+    file, the error names the one it looked for."""
+    path = os.path.join(root, "portbench", kind, name + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"portbench: {name!r} names no file of {kind}: {path} is missing")
+    spec = importlib.util.spec_from_file_location(f"portbench.{kind}.{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+DEFAULT_FAMILY = "unet2d"  # the lungmask 2-D U-Net, of every configuration that names none
+
+
+def family(config: dict, root: str = ROOT) -> ModuleType:
+    """The model family of a configuration: ``families/<config["family"]>.py``."""
+    return module("families", config.get("family", DEFAULT_FAMILY), root)
+
+
+def reader(metric: str, root: str = ROOT) -> Callable[[dict], Optional[float]]:
+    return module("layer_metrics", metric, root).read
 
 
 def read_layer_metrics(entries: List[dict], ctx: dict, root: str = ROOT) -> Dict[str, dict]:

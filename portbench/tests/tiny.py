@@ -1,5 +1,6 @@
-"""A cell run on the CPU at a size a test can hold: wf 3, 8 slices of 128²
-(fine-tuning: 2 volumes of 16), the chip check skipped.
+"""A cell run on the CPU at a size a test can hold, as the configuration's
+family shrinks it (the 2-D U-Net: wf 3, 8 slices of 128²; fine-tuning: 2
+volumes of 16), the chip check skipped.
 
 The cells that ``PERF.md`` leaves out of ``BENCHMARK.json`` for now keep
 their entries in ``left_out_cells.json`` (as a benchmark PR would add them
@@ -18,17 +19,11 @@ from portbench import run, spec
 LEFT_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "left_out_cells.json")
 
 
-WF = 3
+WF = spec.family({}).TINY_WF  # the 2-D U-Net's width here
 
 
 def shrink(cell: dict) -> None:
-    cell["config"]["wf"] = WF
-    t = cell["traffic"]
-    t["size"] = 128
-    if t["lane"] == "finetune":
-        t.update(volumes=2, slices=16, warm_steps=4)
-    else:
-        t["slices"] = 8
+    spec.family(cell["config"]).shrink(cell)
 
 
 def _with_left_out(b: dict) -> dict:
