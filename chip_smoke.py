@@ -164,9 +164,26 @@ tensor cores' 989 TFLOP/s bf16 — over 67 TFLOP/s float32 on the direct
 route, which has no tensor cores — its float32 epilogue over 67 TFLOP/s;
 library: the cuDNN composition).
 
+The nnunet3d phase holds nnU-Net's 3-D U-Net's two Triton kernels to their
+plain versions on the card at the main path's shapes and times them beside
+their bounds (bytes over 3.35 TB/s) and torch's own calls: kernel (a),
+InstanceNorm + LeakyReLU, at each stage's shape in a forward of the
+configuration's ``patches_per_forward`` 128³ patches
+(``portbench/configs/nnunet3d_lobes.json``; ≤ 0.01% of outputs a bf16 step
+off; beside ``instance_norm`` + ``leaky_relu``), and summed over the
+forward's norms (each stage's in the encoder and the decoder); kernel (b), the export of six classes' 192×239² logits to
+a 192×512² 4-bit mask (≤ 1e-5 of the bytes differ; beside ``interpolate`` +
+``argmax``); one 128³ patch through the bf16 network against the float32
+reference of ``portbench/reference/nnunet3d.py`` (relative ≤ 5%, one
+launch of kernel (a) a norm); and ``LMInferer(modelpath=<3-D .npz>).apply``
+on a seeded 192×512² RAS phantom at 0.7×0.7×1.5 mm, whose launches of (a)
+and (b) and patches, counted from zero around one warm call, must be the
+window's (18 patches, 3 forwards of 22 norms, one export). Their entries
+join the kernels line with that call's launches.
+
 Phases: device, build, kernel, unet, stencil, convstage, fused, inferer,
 weights, cli, dicom, postdev, cohort, serve, devprep, train, variants, mesh,
-space, examples, layers; each
+space, examples, layers, nnunet3d; each
 prints its results on its own lines, and fails if it left torch's current CUDA device
 changed (the launchers must restore the caller's device). The second-to-last line is a JSON
 object describing the kernels; the last line is ``{"ok": true, "device":
@@ -284,6 +301,10 @@ SPACE_VOXEL_SHARE = 1e-5  # bf16 masks: differing voxels, of the volume's
 SPACE_LOSS_RTOL = 1e-3  # fit(mesh=1x2) bf16 losses against the unsharded fit's
 SPACE_GRAD_RTOL = 1e-3  # one f32 step: each leaf, of its largest gradient
 REPS = 20  # back-to-back launches per CUDA-event pair and per profiler group
+NORM3D_SOURCE = "lungmask_tpu_torch/ops/kernels/norm3d.py"
+EXPORT3D_SOURCE = "lungmask_tpu_torch/ops/kernels/export3d.py"
+NO_TPU_KERNEL = "none: the JAX package has no 3-D network"
+NNUNET_CONFIG = "portbench/configs/nnunet3d_lobes.json"
 HOST_CALLS = 200  # wrapper calls per reading of the host's cost
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -538,8 +559,8 @@ def _write_series(img, directory: str) -> None:
 
 def _kernels():
     """The launch-counted wrappers: K1, K2, K3, K4 (and each of its routes),
-    K2ᵀ, K3ᵀ."""
-    from lungmask_tpu_torch.ops.kernels import bodymask, conv_stage, stencil
+    K2ᵀ, K3ᵀ, and the 3-D U-Net's kernels (a) and (b)."""
+    from lungmask_tpu_torch.ops.kernels import bodymask, conv_stage, export3d, norm3d, stencil
 
     return {
         "bodymask_labels": bodymask.bodymask_labels,
@@ -549,6 +570,8 @@ def _kernels():
         **{f"conv_stage_{name}": route for name, route in conv_stage.ROUTES.items()},
         "avg_pool2_bwd": stencil.avg_pool2_bwd,
         "bilinear_up2_bwd": stencil.bilinear_up2_bwd,
+        "instance_norm_leaky": norm3d.instance_norm_leaky,
+        "export_packed": export3d.export_packed,
     }
 
 
@@ -577,6 +600,20 @@ def _want(k1: int, forwards: int, k4_forwards: int = None, residual: bool = Fals
             "conv_stage_tma": k4 * _k4_per_forward(residual, upconv) - direct,
             "conv_stage_mma": 0,
             "avg_pool2_bwd": 4 * steps, "bilinear_up2_bwd": 4 * steps}
+
+
+def _norm3d_stages(plan: dict) -> list:
+    """(channels, patch dims, norms a forward) of each stage of the 3-D
+    U-Net: its encoder convs' norms, and every stage but the deepest its
+    decoder level's."""
+    dims, out = tuple(int(p) for p in plan["patch"]), []
+    feats = [int(c) for c in plan["features"]]
+    for s, (c, st) in enumerate(zip(feats, plan["strides"])):
+        dims = tuple(d // int(st) for d in dims)
+        times = int(plan["convs_per_stage"]) + (
+            int(plan["decoder_convs_per_stage"]) if s < len(feats) - 1 else 0)
+        out.append((c, dims, times))
+    return out
 
 
 def _reset_launches() -> None:
@@ -3188,6 +3225,136 @@ class Smoke:
         self.state["layers"] = result
 
 
+    def nnunet3d(self):
+        """Kernels (a) and (b) of nnU-Net's 3-D U-Net at the main path's
+        shapes against their plain versions on the card, timed beside their
+        bounds and torch's own calls; one 128³ patch through the network
+        against the float32 reference; the launches and patches of one
+        ``LMInferer.apply`` of a 192×512² volume."""
+        torch = self.torch
+        import numpy as np
+
+        from lungmask_tpu_torch import LMInferer
+        from lungmask_tpu_torch.io.image import MedicalImage
+        from lungmask_tpu_torch.models import convert, unet3d
+        from lungmask_tpu_torch.ops.kernels import export3d, norm3d
+        from lungmask_tpu_torch.runtime import sliding_window
+        from portbench import phantom
+        from portbench.families import nnunet3d as family
+        from portbench.reference import nnunet3d as ref
+
+        with open(os.path.join(REPO, NNUNET_CONFIG)) as f:
+            config = json.load(f)
+        plan = family.plan(config)
+        n = int(plan["patches_per_forward"])
+        stages = _norm3d_stages(plan)
+        norms = sum(times for _, _, times in stages)
+        dev = torch.device("cuda", 0)
+        g = torch.Generator(device=dev).manual_seed(0)
+        F = torch.nn.functional
+        worst, total = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        for c, dims, times in stages:
+            v = int(np.prod(dims))
+            x = (torch.randn((n, c) + dims, generator=g, device=dev) * 3 + 1.5).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+            w = torch.rand(c, generator=g, device=dev) + 0.5
+            b = torch.randn(c, generator=g, device=dev) * 0.1
+            got = norm3d.instance_norm_leaky(x, w, b, 1e-5, 0.01).float()
+            want = norm3d.instance_norm_leaky_reference(x, w, b, 1e-5, 0.01).float()
+            far = ((got - want).abs() > want.abs() * 2 ** -7 + 1e-6).float().mean().item()
+            self.check(far <= 1e-4, f"norm3d N={n} C={c} {dims}: {far:.2e} of outputs a bf16 "
+                       "step off")
+            worst = max(worst, (got - want).abs().max().item())
+            del got, want
+            out = torch.empty_like(x)
+            t = {"ms": _median_ms(torch, lambda: norm3d.instance_norm_leaky(
+                     x, w, b, 1e-5, 0.01, out=out), runs=5),
+                 "plain_ms": _median_ms(torch, lambda: norm3d.instance_norm_leaky_reference(
+                     x, w, b, 1e-5, 0.01), runs=3, reps=3),
+                 "library_ms": _median_ms(torch, lambda: F.leaky_relu(F.instance_norm(
+                     x, weight=w.to(x.dtype), bias=b.to(x.dtype), eps=1e-5), 0.01), runs=3,
+                     reps=3),
+                 "bound_ms": norm3d.bytes_moved(n, c, v) / HBM_BYTES_PER_S * 1e3}
+            for k in total:
+                total[k] += times * t[k]
+            print(f"[nnunet3d] norm3d N={n} C={c} {dims}, {times} a forward: {t['ms']:.4f} ms "
+                  f"each, bound {t['bound_ms']:.4f} ({t['bound_ms'] / t['ms']:.1%}), plain "
+                  f"{t['plain_ms']:.4f}, torch instance_norm + leaky_relu {t['library_ms']:.4f}, "
+                  f"slabs {norm3d.launch_plan(n, v, c)['nblk']}")
+            del x, out
+        self.state["norm3d"] = dict(total, max_abs_err=worst, bound_by="bytes")
+        print(f"[nnunet3d] norm3d, a forward's {norms} ({n} patches): {total['ms']:.4f} ms, bound "
+              f"{total['bound_ms']:.4f} ({total['bound_ms'] / total['ms']:.1%}), torch "
+              f"{total['library_ms']:.4f} ({self.state['smi']})")
+
+        full, grid = (192, 512, 512), (192, 239, 239)
+        lg = torch.randn((6,) + grid, generator=g, device=dev)
+        box = (0, 192, 0, 512, 0, 512)
+        got = export3d.export_packed(lg, box, full)
+        want = export3d.export_reference(lg, box, full)
+        off = (got != want).float().mean().item()
+        self.check(off <= 1e-5, f"export: {off:.2e} of the bytes differ from the plain version")
+
+        def library():
+            return F.interpolate(lg[None], size=full, mode="trilinear",
+                                 align_corners=False)[0].argmax(0)
+
+        t = {"ms": _median_ms(torch, lambda: export3d.export_packed(lg, box, full), runs=5),
+             "plain_ms": _median_ms(torch, lambda: export3d.export_reference(lg, box, full),
+                                    runs=3, reps=2),
+             "library_ms": _median_ms(torch, library, runs=3, reps=2),
+             "bound_ms": export3d.bytes_moved(6, grid, full) / HBM_BYTES_PER_S * 1e3}
+        self.state["export3d"] = dict(t, max_abs_err=off, bound_by="bytes")
+        print(f"[nnunet3d] export 6×{grid} → {full}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+              f"({t['bound_ms'] / t['ms']:.1%}), plain {t['plain_ms']:.4f}, torch interpolate + "
+              f"argmax {t['library_ms']:.4f}; {off:.2e} of the bytes differ")
+        del lg, got, want
+
+        params = unet3d.init_params(plan, torch.Generator().manual_seed(0))
+        x = torch.randn((1, 1, 128, 128, 128), generator=g, device=dev)
+        before = norm3d.instance_norm_leaky.launches
+        got = unet3d.UNet3D(params, plan, dev, torch.bfloat16)(x).float()
+        launches = norm3d.instance_norm_leaky.launches - before
+        with torch.no_grad():
+            want = ref.logits(ref.tensors(params, dev), x, plan)
+        rel = ((got - want).norm() / want.norm()).item()
+        agree = (got.argmax(1) == want.argmax(1)).float().mean().item()
+        print(f"[nnunet3d] one 128³ patch, bf16 against the float32 reference: relative "
+              f"{rel:.4f}, argmax agrees on {agree:.4%}, {launches} norm3d launches")
+        self.check(rel <= 0.05 and launches == norms, f"patch: relative {rel}, launches {launches}")
+        self.state["nnunet3d_patch"] = {"relative": rel, "argmax_agree": float(np.float64(agree))}
+        del got, want, x
+
+        # The main path: LMInferer.apply on the benchmark's volume, counted
+        # from zero around one call after a warm one.
+        wpath = os.path.join(self.state["tmp"], "nnunet3d.npz")
+        convert.save_npz(wpath, params, meta={"architecture": "nnunet3d", "plan": plan})
+        inferer = LMInferer(modelpath=wpath, tqdm_disable=True, volume_postprocessing=False,
+                            precision=config["precision"])
+        spacing = (0.7, 0.7, 1.5)
+        vol, _ = phantom.volume(0, 0, full[0], full[1], dev)
+        image = MedicalImage(vol, spacing=spacing, direction=phantom.RAS)
+        inferer.apply(image)
+        _reset_launches()
+        sliding_window.PATCHES.value = 0
+        t0 = time.perf_counter()
+        mask = inferer.apply(image)
+        wall = time.perf_counter() - t0
+        patches = family.forward_cost(config, full, spacing)["patches"]
+        want = {"instance_norm_leaky": -(-patches // n) * norms, "export_packed": 1,
+                "patches": patches}
+        counted = {"instance_norm_leaky": norm3d.instance_norm_leaky.launches,
+                   "export_packed": export3d.export_packed.launches,
+                   "patches": sliding_window.PATCHES.value}
+        self.state["launches3d"] = counted
+        print(f"[nnunet3d] LMInferer.apply of a {full} volume: {wall:.4f} s, mask {mask.shape} "
+              f"{mask.dtype}, classes {np.unique(mask).tolist()}; counted {counted}, the window's "
+              f"{want}")
+        self.check(counted == want and mask.shape == full,
+                   f"apply: counted {counted} against {want}, mask {mask.shape}")
+        del inferer, image, vol, mask
+
+
 def main() -> int:
     import torch
 
@@ -3228,10 +3395,11 @@ def main() -> int:
                          "inferer": "inferer", "fused_mask": "fused", "cache": "fused"},
             "layers": {"chunk_ms": "unet", "smi": "device"},
             "convstage": {"smi": "device"},
+            "nnunet3d": {"smi": "device"},
         }
         for name in ("device", "build", "kernel", "unet", "stencil", "convstage", "fused",
                      "inferer", "weights", "cli", "dicom", "postdev", "cohort", "serve", "devprep",
-                     "train", "variants", "mesh", "space", "examples", "layers"):
+                     "train", "variants", "mesh", "space", "examples", "layers", "nnunet3d"):
             missing = [(key, maker) for key, maker in needs.get(name, {}).items()
                        if key not in smoke.state]
             if missing:
@@ -3245,9 +3413,12 @@ def main() -> int:
         return 1
     measured = {"bodymask_labels": smoke.state["k1"], **smoke.state["stencil"],
                 **{f"conv_stage_{r}": v for r, v in smoke.state["k4"].items()},
-                **smoke.state["adjoints"]}
+                **smoke.state["adjoints"], "instance_norm_leaky": smoke.state["norm3d"],
+                "export_packed": smoke.state["export3d"]}
     launches = {**smoke.state["launches"], **{k: smoke.state["train_launches"][k]
-                                              for k in BACKWARD}}
+                                              for k in BACKWARD},
+                **{k: smoke.state["launches3d"][k]
+                   for k in ("instance_norm_leaky", "export_packed")}}
     sources = {
         "bodymask_labels": (K1_SOURCE, K1_REPLACES),
         "avg_pool2": (STENCIL_SOURCE, K2_REPLACES),
@@ -3257,6 +3428,8 @@ def main() -> int:
         "conv_stage_mma": (K4_SOURCE, K4_REPLACES),
         "avg_pool2_bwd": (STENCIL_SOURCE, K2T_REPLACES),
         "bilinear_up2_bwd": (STENCIL_SOURCE, K3T_REPLACES),
+        "instance_norm_leaky": (NORM3D_SOURCE, NO_TPU_KERNEL),
+        "export_packed": (EXPORT3D_SOURCE, NO_TPU_KERNEL),
     }
     print(json.dumps({"kernels": [{
         "name": name,

@@ -31,6 +31,19 @@ runs on the host), and fuses the two with
 the reference's FN-fill / FP-removal rule (``native.fused_finish``;
 reference mask.py:223-232).
 
+A 3-D model (an ``.npz`` whose meta names nnU-Net's ``3d_fullres`` U-Net,
+``models/unet3d.py``) takes another path through the same phases:
+preprocessing is nnU-Net's on the device (``transforms/nnunet3d.py``: crop to
+the nonzero box, CT normalisation, the cubic resample to the plan's spacing),
+the forward is nnU-Net's sliding window (``runtime/sliding_window.py``; its
+InstanceNorm + LeakyReLU is the kernel ``ops/kernels/norm3d``), and the
+finish exports the logits to the input grid, argmax and paste in one kernel
+(``ops/kernels/export3d``, stage ``export``) before the host postprocessing
+(``volume_postprocessing``) and the reorientation back. The 3-D modules and
+Triton are imported only when such a model is loaded. A 3-D model takes no
+``fillmodel``, ``mesh``, ``preprocessing`` or device postprocessing, and
+runs the plan's patches per forward whatever ``batch_size`` says.
+
 Device rule: the device is resolved once. ``force_cpu=True`` or
 ``device="cpu"`` mean the CPU; otherwise a CUDA device is required and its
 absence raises — the inferer never quietly continues on the CPU. With a
@@ -51,7 +64,7 @@ import torch
 
 from lungmask_tpu_torch.io.image import MedicalImage, reorient
 from lungmask_tpu_torch.logger import logger
-from lungmask_tpu_torch.models.registry import MODEL_URLS, get_model
+from lungmask_tpu_torch.models.registry import MODEL_URLS, get_model, model_plan
 from lungmask_tpu_torch.ops import native, resample
 from lungmask_tpu_torch.parallel.sharded import ShardedUNetRunner, make_sharded_postprocess
 from lungmask_tpu_torch.runtime import prefault_host_heap, tune_host_allocator
@@ -61,6 +74,7 @@ from lungmask_tpu_torch.runtime.engine import (
     run_pair,
     run_pair_numpy,
     unpack_crumbs,
+    unpack_nibbles,
 )
 from lungmask_tpu_torch.transforms import postprocess, preprocess
 from lungmask_tpu_torch.transforms.postprocess_device import (
@@ -130,6 +144,21 @@ class LMInferer:
             raise ValueError(
                 f"Modelname not found. Please choose from: {list(MODEL_URLS)}"
             )
+        self._plan3d = model_plan(modelpath) if modelpath is not None else {}
+        if self._plan3d:
+            refused = [name for name, given in (
+                ("fillmodel", fillmodel is not None or fillmodel_path is not None),
+                ("mesh", mesh is not None), ("preprocessing", preprocessing is not None),
+                ("postprocessing_mode='device'", postprocessing_mode == "device")) if given]
+            if refused:
+                raise ValueError(
+                    f"{modelpath} is a 3-D model (nnU-Net's 3d_fullres U-Net), which takes no "
+                    f"{', '.join(refused)}: it runs its own preprocessing and sliding window "
+                    "on one device")
+            if int(self._plan3d.get("logit_order", 1)) != 1:
+                raise ValueError(
+                    f"{modelpath}: the plan's logit_order is {self._plan3d['logit_order']}, but "
+                    "the export resamples a 3-D model's logits at order 1 only")
         if fillmodel is not None and fillmodel not in MODEL_URLS:
             raise ValueError(
                 f"Modelname not found. Please choose from: {list(MODEL_URLS)}"
@@ -184,6 +213,14 @@ class LMInferer:
                 device=self.device,
             )
 
+        if self._plan3d:
+            from lungmask_tpu_torch.runtime.sliding_window import SlidingWindowRunner
+
+            self.model = SlidingWindowRunner(
+                get_model(modelname, modelpath)[0], self._plan3d, self.device,
+                self._compute_dtype)
+            self.fillmodelm = None
+            return
         self.model = make_runner(modelname, modelpath)
         self.fillmodelm = None if fillmodel is None else make_runner(fillmodel, fillmodel_path)
 
@@ -341,6 +378,14 @@ class LMInferer:
         """Phase 1 of :meth:`apply`: orientation normalization +
         preprocessing (the normalized stack ends on the device)."""
         inimg_raw, curr_orient, lps_image = self._to_lps(image)
+        if self._plan3d:
+            from lungmask_tpu_torch.transforms import nnunet3d
+
+            spacing = None if lps_image is None else tuple(reversed(lps_image.spacing))
+            with self.timings.stage("preprocess"):
+                pre = self._synced(nnunet3d.preprocess(inimg_raw, spacing, self._plan3d,
+                                                       self.device))
+            return dict(pre, inimg_raw=inimg_raw, curr_orient=curr_orient, lps_image=lps_image)
         with self.timings.stage("preprocess"):
             normalized, boxes = self._preprocess(inimg_raw)
         return {
@@ -356,6 +401,8 @@ class LMInferer:
         maps (base, fill) in the fused mode — on the host, or on the device
         with device postprocessing."""
         with self.timings.stage("unet"):
+            if self._plan3d:  # the (K, d, h, w) float32 logits, left on the device
+                return self._synced(self.model.logits(pre["normalized"]))
             if self.fillmodelm is None:
                 return self._forward_model(self.model, pre["normalized"])
             if self.mesh is not None:  # the two sharded runners one after the other
@@ -369,6 +416,8 @@ class LMInferer:
     def finish_forward(self, pre: dict, pred) -> np.ndarray:
         """Phase 2b: postprocess + paste-back + reorientation; in the fused
         mode each model's mask is finished so, then the two are fused."""
+        if self._plan3d:
+            return self._finish_3d(pre, pred)
         shape = pre["inimg_raw"].shape[1:]
 
         def finish_one(pred_np, runner):
@@ -398,6 +447,24 @@ class LMInferer:
                 res_l, spare=[spare_value], disable_tqdm=self.tqdm_disable
             )
 
+    def _finish_3d(self, pre: dict, logits) -> np.ndarray:
+        """A 3-D model's finish: the logits exported to the input grid,
+        argmax and pasted into the uncropped volume on the device, 4 bits a
+        voxel where they fit (stage ``export``, its download and unpack
+        included); the host postprocessing; the reorientation back."""
+        from lungmask_tpu_torch.ops.kernels import export3d
+
+        with self.timings.stage("export"):
+            packed = export3d.export_packed(logits, pre["box"], pre["full_shape"]).cpu().numpy()
+            if export3d.packing(self.model.n_classes, pre["full_shape"][2]) == 2:
+                mask = unpack_nibbles(packed)
+            else:
+                mask = packed
+        if self.volume_postprocessing:
+            with self.timings.stage("postprocess"):
+                mask = postprocess.postprocessing(mask, disable_tqdm=self.tqdm_disable)
+        return self._from_lps(mask, pre["curr_orient"], pre["lps_image"])
+
     def apply_preprocessed(self, pre: dict) -> np.ndarray:
         """Phase 2 of :meth:`apply` on a :meth:`preprocess_image` result."""
         return self.finish_forward(pre, self.forward_preprocessed(pre))
@@ -407,7 +474,7 @@ class LMInferer:
         """Apply the model (or the fused model pair) to a volumetric image;
         returns the uint8 label volume in the input's own geometry and axis
         order. The fused pair shares one preprocessing pass."""
-        if self.fillmodelm is not None:
+        if self.fillmodelm is not None or self._plan3d:
             return self.apply_preprocessed(self.preprocess_image(image))
         inimg_raw, curr_orient, lps_image = self._to_lps(image)
         outmask = self._infer_volume(inimg_raw)

@@ -20,9 +20,12 @@ checkpoint's own class count wins over the registry (lungmask/mask.py:22-68).
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 import urllib.request
 from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 from lungmask_tpu_torch.logger import logger
 from lungmask_tpu_torch.models import convert
@@ -108,15 +111,39 @@ def _npz_cache_path(modelname: str) -> str:
     return os.path.join(cache_dir(), stem + ".npz")
 
 
+def _plan_of(meta) -> Dict:
+    """The plan in a 3-D model's meta (``models/unet3d.py``), or {} where
+    the meta names another architecture (the 2-D U-Net's name none)."""
+    if not isinstance(meta, dict) or meta.get("architecture") != "nnunet3d":
+        return {}
+    return dict(meta["plan"])
+
+
+def model_plan(modelpath: str) -> Dict:
+    """The plan of a 3-D model's ``.npz``, read without its arrays, or {}
+    for any other checkpoint."""
+    if not modelpath.endswith(".npz"):
+        return {}
+    with np.load(modelpath) as data:
+        if "__meta__" not in data.files:
+            return {}
+        return _plan_of(json.loads(bytes(data["__meta__"]).decode("utf-8")))
+
+
 def get_model(
     modelname: str = "R231", modelpath: Optional[str] = None
 ) -> Tuple[Params, int]:
     """Resolve weights as a JAX-layout numpy tree. Returns ``(params,
     n_classes)``. ``modelpath`` (``.pth`` or converted ``.npz``) overrides
-    ``modelname``, and n_classes always comes from the weights."""
+    ``modelname``, and n_classes always comes from the weights; a 3-D
+    model's ``.npz`` (:func:`model_plan`) gives its flat tree in torch's
+    layouts and its plan's class count."""
     if modelpath is not None:
         if modelpath.endswith(".npz"):
-            params, _meta = convert.load_npz(modelpath)
+            params, meta = convert.load_npz(modelpath)
+            plan = _plan_of(meta)
+            if plan:  # a 3-D model: its flat tree, by its own keys
+                return convert.flatten_params(params), int(plan["n_classes"])
         else:
             params, _ = convert.convert_pth(modelpath)
         return params, n_classes_of(params)
