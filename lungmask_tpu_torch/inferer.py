@@ -62,7 +62,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from lungmask_tpu_torch.io.image import MedicalImage, reorient
+from lungmask_tpu_torch.io.image import MedicalImage, copy_voxels, reorient
 from lungmask_tpu_torch.logger import logger
 from lungmask_tpu_torch.models.registry import MODEL_URLS, get_model, model_plan
 from lungmask_tpu_torch.ops import native, resample
@@ -247,40 +247,47 @@ class LMInferer:
 
     def _to_lps(self, image: ImageLike):
         """Input normalization (reference mask.py:153-164): numpy passthrough,
-        geometry-carrying images reoriented to LPS (stage ``to_lps``)."""
+        geometry-carrying images reoriented to LPS (stage ``to_lps``). The
+        copy, the reorientation and the :meth:`_hu_dtype` promotion are one
+        pass; an LPS image of an HU-capable dtype is used as it is."""
         with self.timings.stage("to_lps"):
             if isinstance(image, np.ndarray):
-                return self._hu_capable(image.copy()), None, None
+                return copy_voxels(image, self._hu_dtype(image.dtype)), None, None
             curr_orient = image.orientation()
+            hu = self._hu_dtype(image.array.dtype)
             if curr_orient != "LPS":
-                image = reorient(image, "LPS")
-            return self._hu_capable(image.array), curr_orient, image
+                image = reorient(image, "LPS", dtype=hu)
+            elif hu != image.array.dtype:
+                return copy_voxels(image.array, hu), curr_orient, image
+            return image.array, curr_orient, image
 
     @staticmethod
-    def _hu_capable(arr: np.ndarray) -> np.ndarray:
+    def _hu_dtype(dtype) -> np.dtype:
         """Voxels must be able to hold the HU window bounds: unsigned and
         narrow inputs are promoted to the smallest signed type that covers
-        their range and the window; int16/int32/float pass untouched."""
-        kind, size = arr.dtype.kind, arr.dtype.itemsize
+        their range and the window; int16/int32/float keep their dtype."""
+        dtype = np.dtype(dtype)
+        kind, size = dtype.kind, dtype.itemsize
         if kind == "u":
-            return arr.astype({1: np.int16, 2: np.int32}.get(size, np.int64))
+            return np.dtype({1: np.int16, 2: np.int32}.get(size, np.int64))
         if kind in "ib" and size < 2:
-            return arr.astype(np.int16)
-        return arr
+            return np.dtype(np.int16)
+        return dtype
 
     def _from_lps(self, outmask, curr_orient, lps_image) -> np.ndarray:
         """Reorient a result back to the input orientation (mask.py:204-208;
-        stage ``from_lps``)."""
+        stage ``from_lps``) as uint8, cast in the reorientation's one pass;
+        a uint8 mask already in the input's orientation is returned as is."""
         with self.timings.stage("from_lps"):
             if curr_orient is None or curr_orient == "LPS":
-                return outmask.astype(np.uint8)
+                return outmask if outmask.dtype == np.uint8 else copy_voxels(outmask, np.uint8)
             out_img = MedicalImage(
                 outmask,
                 spacing=lps_image.spacing,
                 origin=lps_image.origin,
                 direction=lps_image.direction,
             )
-            return reorient(out_img, curr_orient).array.astype(np.uint8)
+            return reorient(out_img, curr_orient, dtype=np.uint8).array
 
     def _stage_bar(self):
         """Per-volume progress over the four pipeline stages."""

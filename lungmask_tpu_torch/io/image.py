@@ -24,6 +24,9 @@ direction the axis points toward ("LPS" ⇔ direction ≈ identity), mirroring
 
 from __future__ import annotations
 
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
@@ -147,13 +150,15 @@ def _axis_plan(direction: np.ndarray, target: str):
     return plan
 
 
-def reorient(image: MedicalImage, target: str = "LPS") -> MedicalImage:
+def reorient(image: MedicalImage, target: str = "LPS", dtype=None) -> MedicalImage:
     """Permute/flip image axes so the orientation code becomes ``target``.
 
     Behavioral equivalent of ``sitk.DICOMOrient(image, target)``
     (lungmask/mask.py:163,207): a pure axis shuffle — voxel
     values are never resampled — with origin/direction updated so physical
-    positions are preserved.
+    positions are preserved. The flips and the permutation compose into one
+    view of the voxels, written once by :func:`copy_voxels` into a new array
+    of ``dtype`` (the input's by default; cast as ``astype`` casts).
     """
     plan = _axis_plan(image.direction, target)
 
@@ -169,19 +174,88 @@ def reorient(image: MedicalImage, target: str = "LPS") -> MedicalImage:
         origin = origin + d[:, j] * spacing[j] * (n - 1)
         d[:, j] = -d[:, j]
     if flip_src:
-        arr = np.flip(arr, axis=[2 - j for j in flip_src]).copy()
+        arr = np.flip(arr, axis=[2 - j for j in flip_src])
 
     # Then permute: new image axis k comes from source axis j.
     perm = [j for j, _ in plan]  # length 3
     d = d[:, perm]
     spacing = tuple(spacing[j] for j in perm)
     # array axes: new array axis (2-k) = old array axis (2-perm[k])
-    arr = np.transpose(arr, axes=[2 - perm[2 - a] for a in range(3)]).copy()
+    arr = np.transpose(arr, axes=[2 - perm[2 - a] for a in range(3)])
 
     return MedicalImage(
-        array=arr,
+        array=copy_voxels(arr, dtype),
         spacing=spacing,
         origin=tuple(origin),
         direction=d,
         metadata=dict(image.metadata),
     )
+
+
+# -- the voxel copy ---------------------------------------------------------------
+#
+# A whole volume written once: the copy runs in slabs of the result's axis 0,
+# on a process-wide pool and the calling thread (np.copyto releases the GIL;
+# each thread also takes the page faults of the slab it writes). One pool for
+# every caller: the fused pair's two finishes and the cohort's loader and
+# finisher copy at the same time, and a pool per call would start threads for
+# every volume.
+
+_SLAB_BYTES = 2 << 20  # the least a slab writes; a copy of fewer than two runs inline
+_pool_lock = threading.Lock()
+_pool = None
+_counts_lock = threading.Lock()
+_counts = {"passes": 0, "parallel_passes": 0, "slabs": 0, "max_workers": 0, "bytes": 0}
+
+
+def reorient_counts() -> dict:
+    """Process-wide counts of :func:`copy_voxels` passes since the process
+    started: ``passes``, ``parallel_passes`` (slabs copied on more than one
+    thread), ``slabs`` copied, ``max_workers``, the most threads one pass
+    used, and ``bytes`` written."""
+    with _counts_lock:
+        return dict(_counts)
+
+
+def _copy_workers() -> int:
+    """Threads a copy may use, the caller's included: the process's CPUs, at
+    most 8."""
+    return min(8, len(os.sched_getaffinity(0)))
+
+
+def _executor() -> ThreadPoolExecutor:
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = ThreadPoolExecutor(max(1, _copy_workers() - 1),
+                                       thread_name_prefix="voxel-copy")
+        return _pool
+
+
+def copy_voxels(src: np.ndarray, dtype=None) -> np.ndarray:
+    """``src``, any strided view, as a new C-contiguous array of ``dtype``
+    (``src``'s own by default; cast as ``astype`` casts, wrapping included),
+    in one pass: slabs of at least ``_SLAB_BYTES`` along axis 0, one a
+    thread, the first on the calling thread."""
+    out = np.empty(src.shape, dtype=src.dtype if dtype is None else dtype)
+    rows = len(out)
+    n = max(1, min(_copy_workers(), out.nbytes // _SLAB_BYTES, rows))
+    cuts = [rows * i // n for i in range(n + 1)]
+    if n > 1:
+        pool = _executor()
+        futures = [pool.submit(np.copyto, out[a:b], src[a:b], casting="unsafe")
+                   for a, b in zip(cuts[1:-1], cuts[2:])]
+        try:
+            np.copyto(out[: cuts[1]], src[: cuts[1]], casting="unsafe")
+        finally:
+            for f in futures:
+                f.result()
+    else:
+        np.copyto(out, src, casting="unsafe")
+    with _counts_lock:
+        _counts["passes"] += 1
+        _counts["parallel_passes"] += int(n > 1)
+        _counts["slabs"] += n
+        _counts["max_workers"] = max(_counts["max_workers"], n)
+        _counts["bytes"] += out.nbytes
+    return out

@@ -139,8 +139,8 @@ def test_unported_options_raise(weights, phantom, case):
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int8, np.bool_, np.int16, np.float32])
 def test_hu_capable_promotion_equals_jax(dtype):
     arr = np.zeros((1, 2, 2), dtype)
-    got = LMInferer._hu_capable(arr)
-    assert got.dtype == lungmask_tpu.LMInferer._hu_capable(arr).dtype
+    got = LMInferer._hu_dtype(arr.dtype)
+    assert got == lungmask_tpu.LMInferer._hu_capable(arr).dtype
 
 
 def test_loader_is_nifti_only(tmp_path, phantom):
