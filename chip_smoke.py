@@ -1837,7 +1837,7 @@ class Smoke:
 
         fused = LMInferer(modelname="LTRCLobes", fillmodel="R231", tqdm_disable=True,
                           postprocessing_mode="device")
-        self.check(not fused._fused_finish_threads(), "device-mode fused finishes on 2 threads")
+        self.check(not fused._pipeline._fused_finish_threads(), "device-mode fused finishes on 2 threads")
         fmasks = []
         for call in range(2):
             fused.timings.reset()

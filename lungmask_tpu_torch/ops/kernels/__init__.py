@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels (K1 ``bodymask``, K2/K3 ``stencil``, K4
-``conv_stage``).
+"""The port's hand-written kernels: in CUDA C++, K1 ``bodymask``, K2/K3
+``stencil`` and K4 ``conv_stage``; in Triton, for the 3-D U-Net, (a)
+``norm3d`` and (b) ``export3d``.
 
 Each wrapper counts its kernel's launches in its ``.launches`` attribute.
 The cohort and serve lanes launch kernels from several threads, so the count

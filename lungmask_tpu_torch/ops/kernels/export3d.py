@@ -18,7 +18,7 @@ the weight ``c − floor(c)``; the eight corners are blended along x, then y,
 then z, per class, in float32; the first class of the largest value wins.
 Voxels outside the box are 0. With ≤ 16 classes and an even width, voxel
 ``2j`` goes to the low nibble of byte ``j`` and ``2j + 1`` to the high one
-(``runtime/engine.pack_bits``' order); else one byte a voxel.
+(``ops/packing.pack_bits``' order); else one byte a voxel.
 
 What bounds it on the H100: bytes. It must read the logits once (K·d·h·w
 float32, 263 MB at 192×239²) and write the packed mask (D·H·W/2, 25 MB);

@@ -3,9 +3,10 @@
 
 It replaces no TPU kernel: the JAX package has no 3-D network. It was
 added because each of the U-Net's 22 normalisations reads and writes a
-whole activation (1.2 GB a 128³ patch at the first stage in bf16 with two
-patches a forward), and torch's ``instance_norm`` followed by
-``leaky_relu`` runs over it four times or more, with float32 copies.
+whole activation (at the first stage 134 MB a 128³ patch in bf16, 805 MB
+with the plan's six patches a forward), and torch's ``instance_norm``
+followed by ``leaky_relu`` runs over it four times or more, with float32
+copies.
 
 What bounds it on the H100: bytes. Per element it must read 2 bytes (bf16)
 and write 2; the statistics are a few KB. The design reads the input twice

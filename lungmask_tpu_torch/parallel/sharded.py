@@ -45,6 +45,7 @@ from lungmask_tpu_torch.models import convert
 from lungmask_tpu_torch.models.unet import UNet
 from lungmask_tpu_torch.ops import cc
 from lungmask_tpu_torch.ops.morphology import shift_slices
+from lungmask_tpu_torch.ops.packing import pack_bits, pack_bits_for, unpack_bits_np
 from lungmask_tpu_torch.parallel.halo import Bands
 from lungmask_tpu_torch.parallel.mesh import (
     Mesh,
@@ -53,12 +54,7 @@ from lungmask_tpu_torch.parallel.mesh import (
     shard_batch,
     shard_blocks,
 )
-from lungmask_tpu_torch.runtime.engine import (
-    DEFAULT_CHUNK,
-    pack_bits,
-    pack_bits_for,
-    unpack_bits_np,
-)
+from lungmask_tpu_torch.runtime.engine import DEFAULT_CHUNK
 
 
 def replicate_unet(mesh: Mesh, params, compute_dtype: torch.dtype = torch.float32) -> List[UNet]:
@@ -257,7 +253,7 @@ class ShardedUNetRunner:
 
     def run_numpy(self, slices) -> np.ndarray:
         """:meth:`run` fetched to the host: each block's map bit-packed on
-        its device (``engine.pack_bits_for``), the first half of the chunks
+        its device (``packing.pack_bits_for``), the first half of the chunks
         downloading while the second half computes, unpacked on the host."""
         grid = _blocks(self.mesh, slices, self.depth)
         w = grid[0][0].shape[2]

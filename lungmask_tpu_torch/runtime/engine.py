@@ -5,10 +5,10 @@ The slice stack runs through the U-Net in chunks of ``batch_size`` slices
 lungmask/mask.py:79,173); the last chunk is simply shorter. The JAX engine's
 padding to bucketed chunk counts and its split dispatches exist only to bound
 the number of compiled XLA programs, and PyTorch runs eagerly, so neither is
-ported. Class maps are bit-packed on the device before the download (2 bits
-per pixel for ≤4 classes, 4 for ≤16) with the JAX engine's bit order, and
-unpacked on the host by the native core. The fused two-model mode runs both
-U-Nets chunk by chunk over one stack (:func:`volume_argmax_pair_packed`).
+ported. Class maps are bit-packed on the device before the download and
+unpacked on the host (``ops/packing.py``, the JAX engine's bit order). The
+fused two-model mode runs both U-Nets chunk by chunk over one stack
+(:func:`volume_argmax_pair_packed`).
 """
 
 from __future__ import annotations
@@ -20,18 +20,15 @@ import torch
 
 from lungmask_tpu_torch.models import convert
 from lungmask_tpu_torch.models.unet import UNet, unet_argmax
+from lungmask_tpu_torch.ops.packing import (  # noqa: F401  (the JAX engine's names)
+    pack_bits,
+    pack_bits_for,
+    unpack_bits_np,
+    unpack_crumbs,
+    unpack_nibbles,
+)
 
 DEFAULT_CHUNK = 32
-
-# Byte → unpacked-pixels lookup tables (the fallback when the native core is
-# unavailable): pixel k of a byte sits at bit offset bits·k.
-_NIBBLE_LUT = np.stack(
-    [np.arange(256, dtype=np.uint8) & 0x0F, np.arange(256, dtype=np.uint8) >> 4],
-    axis=-1,
-)
-_CRUMB_LUT = np.stack(
-    [(np.arange(256, dtype=np.uint8) >> s) & 0x03 for s in (0, 2, 4, 6)], axis=-1
-)
 
 
 def volume_argmax(model: UNet, vol: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -45,34 +42,10 @@ def volume_argmax(model: UNet, vol: torch.Tensor, chunk: int) -> torch.Tensor:
     return out
 
 
-def pack_bits(dense: torch.Tensor, bits: int) -> torch.Tensor:
-    """Pack a uint8 class map along the last axis: 2 bits (4 px/byte) or 4
-    bits (2 px/byte), pixel k at bit offset bits·k; 8 = passthrough."""
-    if bits == 8:
-        return dense
-    m, h, w = dense.shape
-    per = 8 // bits
-    groups = dense.reshape(m, h, w // per, per)
-    out = groups[..., 0].clone()
-    for i in range(1, per):
-        out |= groups[..., i] << (bits * i)
-    return out
-
-
 def volume_argmax_packed2(model: UNet, vol: torch.Tensor, chunk: int) -> torch.Tensor:
     """:func:`volume_argmax` crumb-packed: four 2-bit pixels per byte →
     (M, H, W/4) uint8. Unpack with :func:`unpack_crumbs`."""
     return pack_bits(volume_argmax(model, vol, chunk), 2)
-
-
-def pack_bits_for(n_classes: int, width: int) -> int:
-    """Packing width for a class count: 2 bits/pixel (≤4 classes), 4 (≤16),
-    or dense."""
-    if width % 4 == 0 and n_classes <= 4:
-        return 2
-    if width % 2 == 0 and n_classes <= 16:
-        return 4
-    return 8
 
 
 def volume_argmax_pair_packed(
@@ -92,32 +65,6 @@ def volume_argmax_pair_packed(
             out_a[s : s + chunk] = pack_bits(unet_argmax(model_a, x), bits_a)
             out_b[s : s + chunk] = pack_bits(unet_argmax(model_b, x), bits_b)
     return out_a, out_b
-
-
-def unpack_nibbles(packed: np.ndarray) -> np.ndarray:
-    """(M, H, W/2) uint8 nibble pairs → (M, H, W) uint8 class map (host)."""
-    from lungmask_tpu_torch.ops import native
-
-    out = native.unpack_bits(packed, 4)
-    if out is not None:
-        return out
-    return _NIBBLE_LUT[packed].reshape(packed.shape[:-1] + (packed.shape[-1] * 2,))
-
-
-def unpack_crumbs(packed: np.ndarray) -> np.ndarray:
-    """(M, H, W/4) uint8 2-bit quads → (M, H, W) uint8 class map (host)."""
-    from lungmask_tpu_torch.ops import native
-
-    out = native.unpack_bits(packed, 2)
-    if out is not None:
-        return out
-    return _CRUMB_LUT[packed].reshape(packed.shape[:-1] + (packed.shape[-1] * 4,))
-
-
-def unpack_bits_np(packed: np.ndarray, bits: int) -> np.ndarray:
-    if bits == 8:
-        return np.asarray(packed)
-    return unpack_crumbs(packed) if bits == 2 else unpack_nibbles(packed)
 
 
 class UNetRunner:

@@ -35,6 +35,9 @@ import numpy as np
 import torch
 
 from lungmask_tpu_torch.models.unet3d import UNet3D
+from lungmask_tpu_torch.ops.kernels import export3d
+from lungmask_tpu_torch.ops.packing import unpack_bits_np
+from lungmask_tpu_torch.transforms import nnunet3d, postprocess
 
 
 class _Counter:
@@ -154,3 +157,39 @@ class SlidingWindowRunner:
             acc /= self.weight_sum(shape)
         crop = tuple(slice(a, n - b) for (a, b), n in zip(pads, shape))
         return acc[(slice(None),) + crop].contiguous()
+
+
+class VolumePipeline:
+    """A 3-D model's phases behind ``LMInferer`` (its ``model`` a
+    :class:`SlidingWindowRunner`), on the front's device, with the front's
+    stage timer, settings and synchronisation."""
+
+    def __init__(self, front, plan: dict):
+        self.front = front
+        self.plan = plan
+
+    def preprocess(self, volume: np.ndarray, lps_image) -> dict:
+        """nnU-Net's preprocessing (:func:`nnunet3d.preprocess`) at the
+        image's spacing (a bare array: the plan's)."""
+        spacing = None if lps_image is None else tuple(reversed(lps_image.spacing))
+        return self.front._synced(nnunet3d.preprocess(volume, spacing, self.plan,
+                                                      self.front.device))
+
+    def forward(self, pre: dict) -> torch.Tensor:
+        """The (K, d, h, w) float32 logits, left on the device."""
+        return self.front._synced(self.front.model.logits(pre["normalized"]))
+
+    def finish(self, pre: dict, logits: torch.Tensor) -> np.ndarray:
+        """The logits exported to the input grid, argmax and pasted into
+        the uncropped volume on the device, 4 bits a voxel where they fit
+        (stage ``export``, its download and unpack included); the host
+        postprocessing; the reorientation back."""
+        f = self.front
+        with f.timings.stage("export"):
+            packed = export3d.export_packed(logits, pre["box"], pre["full_shape"]).cpu().numpy()
+            per = export3d.packing(f.model.n_classes, pre["full_shape"][2])
+            mask = unpack_bits_np(packed, 8 // per)
+        if f.volume_postprocessing:
+            with f.timings.stage("postprocess"):
+                mask = postprocess.postprocessing(mask, disable_tqdm=f.tqdm_disable)
+        return f._from_lps(mask, pre["curr_orient"], pre["lps_image"])

@@ -35,7 +35,7 @@ from typing import Optional
 import torch
 
 from lungmask_tpu_torch.ops import cc, morphology
-from lungmask_tpu_torch.runtime.engine import pack_bits
+from lungmask_tpu_torch.ops.packing import pack_bits
 
 
 def _largest_cc_per_class(pred: torch.Tensor, n_classes: int, stats: dict) -> torch.Tensor:

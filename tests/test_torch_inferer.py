@@ -15,14 +15,17 @@ import numpy as np
 import pytest
 import torch
 
-import torch_parity  # noqa: F401  (one torch thread per worker)
+import torch_parity as tp  # (one torch thread per worker)
 import lungmask_tpu
 import lungmask_tpu.cli
+import lungmask_tpu_torch
 import lungmask_tpu_torch.cli
 from lungmask_tpu_torch import LMInferer
 from lungmask_tpu_torch.inferer import resolve_device
 from lungmask_tpu_torch.io import image, loader, nifti
-from lungmask_tpu_torch.models import convert, synthetic
+from lungmask_tpu_torch.models import convert, registry, synthetic
+from lungmask_tpu_torch.parallel import make_mesh
+from lungmask_tpu_torch.runtime.engine import UNetRunner
 
 N_SLICES, SIZE = 4, 160
 
@@ -31,6 +34,13 @@ N_SLICES, SIZE = 4, 160
 def weights(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("w") / "laterality_wf2.npz")
     convert.save_npz(path, synthetic.laterality_params(wf=2))
+    return path
+
+
+@pytest.fixture(scope="module")
+def lobes_weights(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("w") / "laterality6_wf2.npz")
+    convert.save_npz(path, synthetic.laterality_params(n_classes=6, wf=2))
     return path
 
 
@@ -79,6 +89,45 @@ def test_split_phase_equals_apply(weights, phantom):
     pre = port.preprocess_image(_ras_image(phantom))
     assert pre["normalized"].shape == (N_SLICES, 256, 256)
     np.testing.assert_array_equal(port.apply_preprocessed(pre), port.apply(_ras_image(phantom)))
+
+
+_STAGES = {"to_lps", "preprocess", "unet", "postprocess", "paste_back", "from_lps"}
+
+
+@pytest.mark.parametrize("case", ["single, exact", "single, device", "fused, exact",
+                                  "fused, device", "two-way mesh"])
+def test_apply_is_the_three_phases(weights, lobes_weights, phantom, case):
+    """``apply`` is the three phases for every 2-D model, and times the
+    stages it timed before (the 3-D model's case is in
+    ``test_torch_sliding_window.py``)."""
+    kw = dict(modelpath=weights, precision="float32", tqdm_disable=True, batch_size=2,
+              postprocessing_mode="device" if "device" in case else "exact")
+    if case.startswith("fused"):
+        kw.update(modelpath=lobes_weights, fillmodel_path=weights)
+    if case == "two-way mesh":
+        kw.update(mesh=make_mesh(devices=["cpu"] * 2), postprocessing_mode="device")
+    else:
+        kw["device"] = "cpu"
+    port = LMInferer(**kw)
+    stages = _STAGES | ({"fusion_postprocess"} if case.startswith("fused") else set())
+    got = tp.assert_apply_is_the_three_phases(port, _ras_image(phantom), stages)
+    assert got.shape == phantom.shape and got.any()
+
+
+def test_deprecated_apply_takes_a_runner(weights, phantom, tmp_path, monkeypatch):
+    """``lungmask_tpu_torch.apply(image, model=runner)`` runs the runner it
+    was handed, not the named model the inferer loads first."""
+    stem = os.path.splitext(os.path.basename(registry.MODEL_URLS["R231"][0]))[0]
+    convert.save_npz(str(tmp_path / f"{stem}.npz"), synthetic.threshold_params(wf=2))
+    monkeypatch.setenv("LUNGMASK_TPU_CACHE", str(tmp_path))
+    params, n_classes = registry.get_model(modelpath=weights)
+    runner = UNetRunner(params, n_classes, batch_size=20, device="cpu")
+    runner.run_numpy = mock.Mock(wraps=runner.run_numpy)
+    with pytest.warns(DeprecationWarning):
+        got = lungmask_tpu_torch.apply(phantom, model=runner, force_cpu=True, tqdm_disable=True)
+    assert runner.run_numpy.call_count == 1
+    want = LMInferer(modelpath=weights, force_cpu=True, batch_size=20, tqdm_disable=True)
+    np.testing.assert_array_equal(got, want.apply(phantom))
 
 
 def test_cli_nifti_equals_jax_cli(weights, phantom, tmp_path):

@@ -240,7 +240,7 @@ def test_inferer_mesh_device_postprocess_splits_a_whole_map(weights):
     inferer = LMInferer(modelpath=weights["single"], tqdm_disable=True, mesh=_cpu_mesh(2),
                         postprocessing_mode="device")
     pred = torch.cat(inferer.forward_preprocessed(inferer.preprocess_image(vol)))
-    got = inferer._device_postprocess(pred.numpy(), 3)
+    got = inferer._pipeline._device_postprocess(pred.numpy(), 3)
     np.testing.assert_array_equal(got, postprocess_device(pred, 3).numpy())
 
 

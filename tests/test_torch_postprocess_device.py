@@ -236,7 +236,7 @@ def test_device_mode_apply_equals_jax(weights, phantom):
 def test_fused_device_mode_equals_jax(cache, phantom, monkeypatch):
     kw = dict(modelname="LTRCLobes", fillmodel="R231", postprocessing_mode="device", **F32)
     port = LMInferer(device="cpu", **kw)
-    assert not port._fused_finish_threads()  # two device cleanups would only queue
+    assert not port._pipeline._fused_finish_threads()  # two device cleanups would only queue
     got = port.apply(phantom)
     want = lungmask_tpu.LMInferer(**kw).apply(phantom)
     np.testing.assert_array_equal(got, want)

@@ -117,6 +117,15 @@ def test_apply_split_phases_and_reference_agree(model, image):
     assert len(np.unique(got)) >= 3
 
 
+def test_apply_is_the_three_phases(model, image):
+    """``apply`` of a 3-D model is the three phases, as for the 2-D models
+    (``test_torch_inferer.py``), and times the stages it timed before."""
+    inf = LMInferer(modelpath=model[0], device="cpu", precision="float32", tqdm_disable=True)
+    got = tp.assert_apply_is_the_three_phases(
+        inf, image, {"to_lps", "preprocess", "unet", "export", "postprocess", "from_lps"})
+    assert got.shape == image.array.shape and got.any()
+
+
 def test_cli_runs_a_3d_model(model, image, tmp_path):
     path, _ = model
     src, out = str(tmp_path / "ct.nii.gz"), str(tmp_path / "mask.nii.gz")

@@ -153,3 +153,21 @@ def assert_same_image(got, want, mask_tags=()) -> None:
     for key, value in want.metadata.items():
         if key not in mask_tags:
             assert got.metadata[key] == value, key
+
+
+def assert_apply_is_the_three_phases(inferer, image, stages) -> np.ndarray:
+    """``inferer.apply(image)`` calls each of ``preprocess_image``,
+    ``forward_preprocessed`` and ``finish_forward`` once, times exactly the
+    stage names ``stages``, and returns what
+    ``apply_preprocessed(preprocess_image(image))`` returns."""
+    from unittest import mock
+
+    phases = ("preprocess_image", "forward_preprocessed", "finish_forward")
+    inferer.timings.reset()
+    spies = {p: mock.Mock(wraps=getattr(inferer, p)) for p in phases}
+    with mock.patch.multiple(inferer, **spies):
+        got = inferer.apply(image)
+    assert {p: spies[p].call_count for p in phases} == dict.fromkeys(phases, 1)
+    assert set(inferer.timings.summary()) == set(stages)
+    np.testing.assert_array_equal(got, inferer.apply_preprocessed(inferer.preprocess_image(image)))
+    return got
