@@ -1,14 +1,17 @@
 """ctypes bindings for the native host core (counterpart of
 ``lungmask_tpu.ops.native``).
 
-The port shares the JAX package's C++ host core: ``csrc/postproc.cpp`` and
-``csrc/preproc.cpp`` at the repository root are compiled with g++ into
-``lungmask_tpu_torch/_build/libpostproc.so`` on first use (a few seconds) and
+The port's own core, ``lungmask_tpu_torch/csrc/postproc.cpp``, and the
+resampler it shares with the JAX package, ``csrc/preproc.cpp`` at the
+repository root, are compiled with g++ into
+``lungmask_tpu_torch/_build/libhostcore.so`` on first use (a few seconds) and
 bound with ctypes. They provide union-find connected components, fused
 regionprops, hole filling, the one-call exact postprocessing, the fused
 two-model finish, the mask paste-back, the bit unpack and the
-crop+resize+normalize resampler. Callers
-fall back to the numpy/scipy implementations when no compiler is available;
+crop+resize+normalize resampler. The postprocessing and the fused finish run
+their passes over voxels in z-slabs on the host's CPUs, with the serial
+core's exact result (:func:`finish_counts`). Callers fall back to the
+numpy/scipy implementations when no compiler is available;
 :func:`native_loaded` reports whether the core loaded.
 """
 
@@ -18,6 +21,7 @@ import contextlib
 import ctypes
 import os
 import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
@@ -29,9 +33,41 @@ _TRIED = False
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(os.path.dirname(_PKG), "csrc")
-_SRCS = [os.path.join(CSRC_DIR, name) for name in ("postproc.cpp", "preproc.cpp")]
+_SRCS = [os.path.join(_PKG, "csrc", "postproc.cpp"), os.path.join(CSRC_DIR, "preproc.cpp")]
 BUILD_DIR = os.path.join(_PKG, "_build")
-_OUT = os.path.join(BUILD_DIR, "libpostproc.so")
+_OUT = os.path.join(BUILD_DIR, "libhostcore.so")
+
+# The finishing calls (postprocess, fused_finish) run each pass over voxels
+# in z-slabs of at least this many voxels, one a thread; a volume of fewer
+# than two slabs' worth runs on the calling thread alone.
+_SLAB_VOXELS = 1 << 21
+_counts_lock = threading.Lock()
+_counts = {"calls": 0, "parallel_calls": 0, "slabs": 0, "max_workers": 0, "voxels": 0}
+
+
+def _workers() -> int:
+    """Threads a finishing call may use, the caller's included: the
+    process's CPUs, at most 8 (as ``io/image.py``'s voxel copy)."""
+    return min(8, len(os.sched_getaffinity(0)))
+
+
+def finish_counts() -> dict:
+    """Process-wide counts of the native finishing calls (:func:`postprocess`,
+    :func:`fused_finish`) since the process started: ``calls``,
+    ``parallel_calls`` (volumes split into more than one slab), ``slabs``
+    (summed over calls), ``max_workers``, the most threads one call's passes
+    used, and ``voxels`` finished."""
+    with _counts_lock:
+        return dict(_counts)
+
+
+def _count(slabs: int, voxels: int) -> None:
+    with _counts_lock:
+        _counts["calls"] += 1
+        _counts["parallel_calls"] += int(slabs > 1)
+        _counts["slabs"] += slabs
+        _counts["max_workers"] = max(_counts["max_workers"], slabs)
+        _counts["voxels"] += voxels
 
 
 @contextlib.contextmanager
@@ -171,13 +207,13 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.lm_postprocess.restype = ctypes.c_int32
         lib.lm_postprocess.argtypes = [
             u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            i32p, ctypes.c_int32, ctypes.c_int32, u8p,
+            i32p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, u8p,
         ]
     if hasattr(lib, "lm_fused_finish"):
         lib.lm_fused_finish.restype = ctypes.c_int32
         lib.lm_fused_finish.argtypes = [
             u8p, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int32, u8p,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, u8p,
         ]
     if hasattr(lib, "lm_paste_masks"):
         lib.lm_paste_masks.restype = ctypes.c_int32
@@ -305,9 +341,11 @@ def postprocess(
     label_image: np.ndarray, spare, skip_below: int
 ) -> Optional[np.ndarray]:
     """Full exact volume postprocessing in one native call (lm_postprocess,
-    voxel-identical to transforms.postprocess.postprocessing — differential
-    tests in tests/test_native.py). Returns None when unavailable or when the
-    input needs the Python path (single-slice volumes, non-uint8 values)."""
+    voxel-identical to transforms.postprocess.postprocessing and to the JAX
+    package's serial core — differential tests in tests/test_torch_native.py),
+    its passes over voxels in slabs on up to :func:`_workers` threads. Returns
+    None when unavailable or when the input needs the Python path
+    (single-slice volumes, non-uint8 values)."""
     lib = get_lib()
     if lib is None or not hasattr(lib, "lm_postprocess"):
         return None
@@ -326,12 +364,15 @@ def postprocess(
     out = np.empty_like(img)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int32)
-    rc = lib.lm_postprocess(
+    slabs = lib.lm_postprocess(
         img.ctypes.data_as(u8p), nz, ny, nx,
-        sp.ctypes.data_as(i32p), len(sp), int(skip_below),
+        sp.ctypes.data_as(i32p), len(sp), int(skip_below), _workers(), _SLAB_VOXELS,
         out.ctypes.data_as(u8p),
     )
-    return out if rc == 0 else None
+    if slabs < 1:
+        return None
+    _count(slabs, img.size)
+    return out
 
 
 def fused_finish(
@@ -357,11 +398,14 @@ def fused_finish(
     nz, ny, nx = a.shape
     out = np.empty_like(a)
     u8p = ctypes.POINTER(ctypes.c_uint8)
-    rc = lib.lm_fused_finish(
+    slabs = lib.lm_fused_finish(
         a.ctypes.data_as(u8p), b.ctypes.data_as(u8p), nz, ny, nx,
-        int(skip_below), out.ctypes.data_as(u8p),
+        int(skip_below), _workers(), _SLAB_VOXELS, out.ctypes.data_as(u8p),
     )
-    return out if rc == 0 else None
+    if slabs < 1:
+        return None
+    _count(slabs, a.size)
+    return out
 
 
 def paste_masks(

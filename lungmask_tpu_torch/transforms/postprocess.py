@@ -66,11 +66,11 @@ def postprocessing(
     """Map small label patches to the neighbor sharing the largest border,
     keep only each label's largest connected component, fill holes.
 
-    Dispatches to the one-call native core (csrc/postproc.cpp lm_postprocess)
-    when built — voxel-identical by differential test (tests/test_native.py),
-    and the reason the fused path's three postprocessing passes fit the <5 s
-    budget on one host core. The Python implementation below is the oracle
-    and the fallback.
+    Dispatches to the one-call native core (the port's
+    ``csrc/postproc.cpp`` ``lm_postprocess``, its passes over voxels in
+    z-slabs on the host's CPUs) when built — voxel-identical by differential
+    test (tests/test_torch_native.py). The Python implementation below is
+    the oracle and the fallback.
 
     Args:
         label_image: int label volume (z, y, x).
